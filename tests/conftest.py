@@ -10,3 +10,9 @@ except ImportError:  # CI image has no hypothesis; alias the local stub
 
     sys.modules["hypothesis"] = _hypothesis_stub
     sys.modules["hypothesis.strategies"] = _hypothesis_stub.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc; skips (with a reason) without one")
