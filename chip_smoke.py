@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the five CUDA kernels from ``src/repro_torch/csrc`` with nvcc
-   for sm_90a and prints the card's name and power limit;
+1. builds the six CUDA libraries (seven kernels) from
+   ``src/repro_torch/csrc`` with nvcc for sm_90a and prints the card's
+   name and power limit;
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
@@ -21,7 +22,23 @@ reference package, and:
    identical to ``evaluate_mask`` over the raw columns, requires each
    kernel's launch counter to rise on the path that uses it, and prints
    queries/s, host-to-device bytes per batch and the time split;
-5. prints the card line, the ``{"kernels": [...]}`` line and, last,
+5. container phase: holds the ``containerops`` and ``member`` kernels
+   against their plain versions on Roaring containers over 1,000,000 rows
+   (16 chunks, densities 0.002 / 0.05 / 0.3), times them beside
+   ``torch.bitwise_and`` / ``bitwise_or``, and requires
+   ``TorchBackend()._container_fold`` to give the streams of the host
+   ``containers.fold`` (the only way to reach ``member``: compiled plans
+   fold Roaring columns with "or" only);
+6. lifecycle phase: ingests the dbgen-like table through an
+   ``IndexWriter`` fed a fixed point-query workload (4 sealed segments and
+   an open buffer), deletes about 1 % of the rows on the card, compacts
+   the first two segments (their two small columns become Roaring), and
+   answers the 64-predicate mix through ``SegmentedIndex.query_many`` and
+   ``execute_compressed_many``, fused and per stage, against
+   ``evaluate_mask`` over the live rows and ``backend="numpy"``;
+7. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+   records no device time);
+8. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -57,7 +74,15 @@ KERNELS = {
     # no Pallas counterpart: the reference decodes with lax.scan
     "ewah_decode": ("src/repro_torch/csrc/ewah_decode.cu",
                     "src/repro/core/ewah_jax.py:129"),
+    "containerops": ("src/repro_torch/csrc/containers.cu",
+                     "src/repro/kernels/containers.py:46"),
+    "member": ("src/repro_torch/csrc/containers.cu",
+               "src/repro/kernels/containers.py:71"),
 }
+CONTAINER_ROWS = 1_000_000           # 16 Roaring chunks of 65,536 rows
+CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
+# the lifecycle phase's sealed batches; the rest of the table stays open
+LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
 
 
 class SmokeFailure(Exception):
@@ -314,7 +339,7 @@ def path_phase(torch, T, name, cols, idx, preds, device):
         ops.reset_launches()
         rows = idx.query_many(preds, **opts)
         streams = [idx.query_compressed(p, **opts) for p in preds]
-        torch.cuda.synchronize()
+        sync(torch, device)
         launches = dict(ops.LAUNCHES)
         bad = 0
         for i, p in enumerate(preds):
@@ -378,11 +403,11 @@ def time_split(torch, T, plans, device):
         batch, lengths = be._pad_group(plans, idxs, cap)
         t1 = time.perf_counter()
         dev = be._to_device(batch, lengths)
-        torch.cuda.synchronize()
+        sync(torch, device)
         t2 = time.perf_counter()
         streams, lens = be._run(root, *dev, (n_rows + 31) // 32,
                                 compressed=True)
-        torch.cuda.synchronize()
+        sync(torch, device)
         t3 = time.perf_counter()
         streams = streams.cpu().numpy().view(np.uint32)
         lens = lens.cpu().numpy()
@@ -400,6 +425,294 @@ def time_split(torch, T, plans, device):
     split["h2d_bytes_total"] = int(sum(h2d))
     log("[split] " + ", ".join(f"{k} {v:.6g}" for k, v in split.items()))
     return split
+
+
+def sync(torch, device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def container_phase(torch, T, device, reps):
+    """The container kernels on Roaring containers over CONTAINER_ROWS
+    rows: ``containerops`` (all three ops, every chunk of the 0.05 set
+    against the 0.3 set) and ``member`` (the 0.002 set's array positions
+    against the 0.3 set's bitmaps), each against its plain version, bit for
+    bit, and timed on the card beside ``torch.bitwise_and`` /
+    ``bitwise_or``; then ``TorchBackend._container_fold`` against the host
+    ``containers.fold`` over folds of the three sets, which must launch
+    both kernels."""
+    import numpy as np
+
+    from repro_torch.core import containers as C
+    from repro_torch.kernels import ops, ref
+
+    n = CONTAINER_ROWS
+    rng = np.random.default_rng(7)
+    sets = [C.from_positions(np.flatnonzero(rng.random(n) < d), n)
+            for d in CONTAINER_DENSITIES]
+    for d, cs in zip(CONTAINER_DENSITIES, sets):
+        kinds = [C.CONTAINER_CLASSES[c] for c in cs.classes]
+        log(f"[containers] density {d}: {len(cs)} chunks, classes "
+            f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }, "
+            f"{cs.n_set()} rows set")
+    sparse, mid, dense = sets
+    check(len(dense) == len(mid) == len(sparse) == -(-n // C.CHUNK_ROWS),
+          "every chunk holds rows at every density")
+    check(all(c == C.ARRAY for c in sparse.classes)
+          and all(c == C.BITMAP for c in dense.classes),
+          "0.002 gives array containers and 0.3 bitmap containers")
+
+    def words(cs):
+        stack = np.stack([C.chunk_words(c, p)
+                          for c, p in zip(cs.classes, cs.payloads)])
+        return torch.from_numpy(stack.view(np.int32)).to(device)
+
+    a, bitmaps = words(mid), words(dense)
+    P = a.shape[0]
+    L = max(len(p) for p in sparse.payloads)
+    pos_np = np.full((P, L), -1, dtype=np.int32)
+    touched = 0
+    for i, p in enumerate(sparse.payloads):
+        pos_np[i, : len(p)] = p
+        touched += len(np.unique(np.asarray(p, dtype=np.int64) >> 5))
+    pos = torch.from_numpy(pos_np).to(device)
+    log(f"[containers] containerops on P={P} x {C.CHUNK_WORDS} words; "
+        f"member on P={P} x L={L} positions ({int((pos_np >= 0).sum())} "
+        f"valid, {touched} distinct words)")
+
+    out = {"kernels": {}}
+    flush = (torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+             if device != "cpu" else None)
+    library = {"and": torch.bitwise_and, "or": torch.bitwise_or}
+    per_op = {}
+    for op in ("and", "or", "andnot"):
+        got = ops.container_pairs(a, bitmaps, op)
+        want = ref.container_pairs(a, bitmaps, op)
+        sync(torch, device)
+        mism = int((got != want).sum())
+        err = max_err(torch, (got,), (want,))
+        check(mism == 0 and err == 0,
+              f"containerops {op} disagrees with its plain version")
+        entry = {"mismatches": mism, "max_abs_err": err}
+        if flush is not None:
+            entry["ms"] = event_ms(
+                torch, lambda: ops.container_pairs(a, bitmaps, op), reps,
+                flush)
+            entry["plain_ms"] = event_ms(
+                torch, lambda: ref.container_pairs(a, bitmaps, op), reps,
+                flush)
+            fn = library.get(op)
+            entry["library_ms"] = (None if fn is None else event_ms(
+                torch, lambda: fn(a, bitmaps), reps, flush))
+        per_op[op] = entry
+        log(f"[containers] containerops {op}: mismatches {mism}, "
+            f"max_abs_err {err} (tolerance 0: bit identity); "
+            + ", ".join(f"{k} {v:.5f}" for k, v in entry.items()
+                        if k.endswith("ms") and v is not None))
+    nbytes = 3 * P * C.CHUNK_WORDS * 4
+    bound_ms, bound_by = bound(nbytes, P * C.CHUNK_WORDS)
+    out["kernels"]["containerops"] = {
+        **{k: per_op["and"].get(k) for k in ("ms", "plain_ms", "library_ms")},
+        "max_abs_err": max(e["max_abs_err"] for e in per_op.values()),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+        "shape": [P, C.CHUNK_WORDS], "per_op": per_op,
+        "timed_op": "and"}
+
+    got = ops.container_gallop(pos, bitmaps)
+    want = ref.container_gallop(pos, bitmaps)
+    sync(torch, device)
+    mism = int((got != want).sum())
+    err = max_err(torch, (got,), (want,))
+    check(mism == 0 and err == 0, "member disagrees with its plain version")
+    hits = got.cpu().numpy()
+    for i, p in enumerate(sparse.payloads):  # and against the host oracle
+        check(np.array_equal(
+            np.asarray(p)[hits[i, : len(p)].astype(bool)],
+            np.intersect1d(p, C.chunk_positions(dense.classes[i],
+                                                dense.payloads[i]))),
+            f"member hits of chunk {i} differ from the dense intersection")
+    check(not hits[pos_np < 0].any(), "member reported a padding lane")
+    nbytes = 2 * P * L * 4 + touched * 4
+    bound_ms, bound_by = bound(nbytes, 4 * P * L)
+    entry = {"max_abs_err": err, "mismatches": mism, "bound_ms": bound_ms,
+             "bound_by": bound_by, "bytes": nbytes, "shape": [P, L],
+             "library_ms": None}
+    if flush is not None:
+        entry["ms"] = event_ms(torch, lambda: ops.container_gallop(
+            pos, bitmaps), reps, flush)
+        entry["plain_ms"] = event_ms(torch, lambda: ref.container_gallop(
+            pos, bitmaps), reps, flush)
+    out["kernels"]["member"] = entry
+    log(f"[containers] member: mismatches {mism}, max_abs_err {err} "
+        f"(tolerance 0: bit identity), {entry.get('ms', float('nan')):.5f} ms "
+        f"(bound {bound_ms:.5f} ms, {bound_by}), plain "
+        f"{entry.get('plain_ms', float('nan')):.5f} ms")
+
+    # the fold on the card: the only route to member (compiled plans fold
+    # Roaring columns with "or" only)
+    folds = [((0, 2), ("and",)), ((2, 0), ("and",)), ((1, 2), ("or",)),
+             ((2, 1), ("andnot",)), ((0, 2, 1, 2), ("and", "or", "andnot")),
+             ((0, 1, 2), ("or", "and"))]
+    for _ in range(4):
+        k = int(rng.integers(2, 5))
+        folds.append((tuple(int(i) for i in rng.integers(0, 3, size=k)),
+                      tuple(str(o) for o in rng.choice(
+                          ["and", "or", "andnot"], size=k - 1))))
+    be = T.TorchBackend(device=device)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    fold_out = [be._container_fold([sets[i] for i in ids], fops, n)
+                for ids, fops in folds]
+    sync(torch, device)
+    fold_s = time.perf_counter() - t0
+    launches = {k: ops.LAUNCHES[k] for k in ("containerops", "member")}
+    for (ids, fops), got in zip(folds, fold_out):
+        want = C.fold([sets[i] for i in ids], fops, n)
+        check(np.array_equal(got, want),
+              f"container fold {ids} {fops} differs from containers.fold")
+    for k in ("containerops", "member"):
+        check(device == "cpu" or launches[k] > 0,
+              f"the container fold never launched {k}")
+    log(f"[containers] {len(folds)} folds identical to containers.fold in "
+        f"{fold_s:.4f} s; launches {launches}")
+    out.update(folds=len(folds), fold_s=fold_s, launches=launches)
+    return out
+
+
+def lifecycle_phase(torch, T, cols, cards, preds, device, scale):
+    """The segmented LSM path: ingest through an IndexWriter with a fixed
+    point-query workload on the two small columns, delete about 1 % of the
+    rows on the card, compact the first two segments (their small columns
+    become Roaring), and answer the mix through the SegmentedIndex, fused
+    and per stage."""
+    import numpy as np
+
+    from repro_torch.core.query import (compile_plan, get_backend,
+                                        lower_containers, with_live_mask)
+    from repro_torch.kernels import ops
+    from repro_torch.workload import WorkloadStats
+
+    n = len(cols[0])
+    order = sorted(range(len(cards)), key=lambda c: cards[c])
+    small, large = order[:2], order[-1]
+    stats = WorkloadStats()
+    for i in range(64):
+        stats.record(small[i % 2], "eq", 1, "equality", 1, 40.0 + i % 3)
+    seals = [max(32, int(s * scale) // 32 * 32) for s in LIFECYCLE_SEALS]
+    check(sum(seals) < n, "the lifecycle leaves rows in the open buffer")
+    result = {}
+    t0 = time.perf_counter()
+    w = T.IndexWriter(T.IndexSpec(row_order="lex", encoding="auto"),
+                      workload_stats=stats)
+    lo = 0
+    for size in seals:
+        w.append([c[lo : lo + size] for c in cols])
+        w.seal()
+        lo += size
+    w.append([c[lo:] for c in cols])
+    result["ingest_s"] = time.perf_counter() - t0
+    check(w.buffered_rows == n - lo, "open buffer size")
+    width = max(1, cards[large] // 100)
+    a = cards[large] // 3
+    doomed = T.Range(large, a, a + width - 1)
+    dead = T.evaluate_mask(doomed, cols)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    # on the card unless rehearsing on the CPU (delete takes no device)
+    deleted = w.delete(doomed, backend="torch" if device != "cpu" else "numpy")
+    sync(torch, device)
+    result["delete_s"] = time.perf_counter() - t0
+    result["delete_launches"] = dict(ops.LAUNCHES)
+    check(deleted == int(dead.sum()),
+          f"delete tombstoned {deleted} rows, evaluate_mask says "
+          f"{int(dead.sum())}")
+    t0 = time.perf_counter()
+    merged = w.compact(span=(0, 2))
+    result["compact_s"] = time.perf_counter() - t0
+    enc = merged.index.encodings()
+    check(all(enc[c] == "roaring" for c in small),
+          f"compaction did not re-encode the small columns {small} to "
+          f"roaring: {enc}")
+    segs = w.segments
+    result["segments"] = [{"rows": s.n_rows, "span": [s.row_start,
+                                                      s.row_stop],
+                           "encodings": list(s.index.encodings())}
+                          for s in segs]
+    result["buffered_rows"] = w.buffered_rows
+    log(f"[lifecycle] {len(seals)} seals of {seals} rows, "
+        f"{w.buffered_rows} rows open; deleted {deleted} rows "
+        f"({deleted / n:.2%}) in {result['delete_s']:.3f} s; compacted "
+        f"segments 0-1 in {result['compact_s']:.3f} s")
+    for i, sg in enumerate(result["segments"]):
+        log(f"[lifecycle] segment {i}: {sg['rows']} rows, span {sg['span']},"
+            f" encodings {sg['encodings']}")
+
+    alive = ~dead
+    want_rows = [np.flatnonzero(T.evaluate_mask(p, cols) & alive)
+                 for p in preds]
+    t0 = time.perf_counter()
+    want_comp = [m.data for _, m in
+                 w.index.execute_compressed_many(preds, backend="numpy")]
+    result["numpy_backend_s"] = time.perf_counter() - t0
+    for mode, fuse in (("fused", True), ("per_stage", False)):
+        opts = {"fuse": fuse} if device != "cpu" else {"fuse": fuse,
+                                                       "device": device}
+        be = get_backend("torch", **opts)
+        be.result_cache.clear()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rows = w.index.query_many(preds, **opts)
+        sync(torch, device)
+        t_rows = time.perf_counter() - t0
+        be.result_cache.clear()
+        t0 = time.perf_counter()
+        comp = w.index.execute_compressed_many(preds, **opts)
+        sync(torch, device)
+        t_comp = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        bad = 0
+        for i, p in enumerate(preds):
+            if not (np.array_equal(rows[i][0], want_rows[i])
+                    and np.array_equal(comp[i][1].data, want_comp[i])):
+                bad += 1
+                log(f"[lifecycle] {mode}: MISMATCH on {p!r}")
+        check(bad == 0, f"lifecycle {mode}: {bad} predicates disagree")
+        need = ["containerops", "ewah_decode"] + (
+            ["planfuse"] if fuse else ["wordops", "slicefold", "recompress"])
+        for k in need:
+            check(device == "cpu" or launches[k] > 0,
+                  f"lifecycle {mode}: {k} never launched")
+        result[mode] = {"launches": launches, "rows_s": t_rows,
+                        "compressed_s": t_comp,
+                        "rows_qps": len(preds) / t_rows,
+                        "compressed_qps": len(preds) / t_comp}
+        log(f"[lifecycle] {mode}: {len(preds)} predicates identical to "
+            f"evaluate_mask over the live rows and backend='numpy'; "
+            f"query_many {len(preds) / t_rows:.1f} queries/s, "
+            f"execute_compressed_many {len(preds) / t_comp:.1f} queries/s; "
+            f"launches {launches}")
+
+    # the container fold's wall time against the batched device program,
+    # on the SegmentedIndex's own per-segment plans
+    be = T.TorchBackend(device=device)
+    t0 = time.perf_counter()
+    plans = [with_live_mask(compile_plan(s.index, p), s.live_stream())
+             for p in preds for s in segs if s.n_rows]
+    t1 = time.perf_counter()
+    n_cfold = sum(1 for p in plans if p.containers)
+    plans = [lower_containers(p, be._container_fold) for p in plans]
+    sync(torch, device)
+    t2 = time.perf_counter()
+    be.execute_compressed_many(plans)
+    sync(torch, device)
+    t3 = time.perf_counter()
+    result["split"] = {"plans": len(plans), "plans_with_cfold": n_cfold,
+                       "compile_s": t1 - t0, "container_fold_s": t2 - t1,
+                       "device_program_s": t3 - t2,
+                       "fold_share": (t2 - t1) / (t3 - t1)}
+    log("[lifecycle] split: " + ", ".join(
+        f"{k} {v:.6g}" for k, v in result["split"].items()))
+    return result
 
 
 def profile_kernels(torch, T, plans, device):
@@ -471,7 +784,7 @@ def run(device="cuda", scale=1.0, reps=20):
         t0 = time.perf_counter()
         build.build_all()
         report["build_s"] = time.perf_counter() - t0
-        log(f"[build] {len(build.KERNELS)} kernels built in "
+        log(f"[build] {len(build.KERNELS)} libraries built in "
             f"{report['build_s']:.1f} s")
         for name in build.KERNELS:
             for line in build.build_log(name).splitlines():
@@ -502,23 +815,27 @@ def run(device="cuda", scale=1.0, reps=20):
         for mode in ("fused", "per_stage"):
             for k, v in res[mode]["launches"].items():
                 totals[k] += v
+    report["containers"] = container_phase(torch, T, device, reps)
+    cols, idx, preds, plans, plan_s = data["dbgen"]
+    cards = [int(c.max()) + 1 for c in cols]
+    report["lifecycle"] = life = lifecycle_phase(torch, T, cols, cards, preds,
+                                                 device, scale)
+    for mode in ("fused", "per_stage"):
+        for k, v in life[mode]["launches"].items():
+            totals[k] += v
+    # member is reached only by direct container folds (see container_phase)
+    totals["member"] = report["containers"]["launches"]["member"]
     report["launches"] = totals
     if device != "cpu":
-        try:
-            prof = profile_kernels(torch, T, data["dbgen"][3], device)
-        except Exception as exc:  # a diagnostic, not a phase
-            prof = None
-            log(f"[profile] torch.profiler failed: {exc!r}")
+        prof = profile_kernels(torch, T, data["dbgen"][3], device)
+        check(prof is not None, "torch.profiler recorded no device time")
         report["profile_dbgen_fused"] = prof
-        if prof is None:
-            log("[profile] no device time recorded: not measured")
-        else:
-            log(f"[profile] dbgen fused batch: wall {prof['wall_ms']:.3f} ms,"
-                f" device busy {prof['device_busy_ms']:.3f} ms, idle share "
-                f"{prof['idle_share']:.1%}; by category (ms) "
-                f"{prof['by_category_ms']}")
-            for key, ms, count in prof["by_kernel"][:12]:
-                log(f"[profile] {ms:10.4f} ms  x{count:<5d} {key[:100]}")
+        log(f"[profile] dbgen fused batch: wall {prof['wall_ms']:.3f} ms,"
+            f" device busy {prof['device_busy_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.1%}; by category (ms) "
+            f"{prof['by_category_ms']}")
+        for key, ms, count in prof["by_kernel"][:12]:
+            log(f"[profile] {ms:10.4f} ms  x{count:<5d} {key[:100]}")
     return report
 
 
@@ -548,14 +865,16 @@ def main():
     report["card"] = card
     report["total_s"] = time.perf_counter() - t_start
     kernels = []
+    timed = {**report["kernels"], **report["containers"]["kernels"]}
     for name, (source, replaces) in KERNELS.items():
-        k = report["kernels"][name]
+        k = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": report["launches"][name],
                         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                        "bound_by": k["bound_by"], "library_ms": None})
+                        "bound_by": k["bound_by"],
+                        "library_ms": k.get("library_ms")})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))

@@ -1,10 +1,12 @@
-"""Carry a reference index across into this package.
+"""Carry a reference index or writer across into this package.
 
 :func:`index_from_reference` reads a ``BitmapIndex`` of the reference
 package (``repro.core``) by its attributes only, without importing that
 package, and returns this package's ``BitmapIndex`` over the same streams,
-permutations and spec.  Both packages can then answer queries on one index,
-which is how the tests hold the torch backend against the JAX one.
+permutations and spec.  :func:`writer_from_reference` does the same for a
+reference ``IndexWriter``: its sealed segments, open buffer and workload
+samples.  Both packages can then answer queries on one index, which is how
+the tests hold the torch backend against the JAX one.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ import numpy as np
 
 from .core import containers, encodings
 from .core.bitmap_index import BitmapIndex, ColumnIndex
+from .core.lifecycle import IndexWriter
+from .core.segment import Segment
 from .core.strategies import IndexSpec
+from .workload.stats import WorkloadStats
 
 
 def _streams(enc):
@@ -67,3 +72,47 @@ def index_from_reference(ref_index) -> BitmapIndex:
         col_perm=None if ref_index.col_perm is None
         else np.asarray(ref_index.col_perm),
         cache_scope=getattr(ref_index, "cache_scope", None))
+
+
+def _array(a, dtype=None):
+    return None if a is None else np.asarray(a, dtype=dtype)
+
+
+def _segment(seg) -> Segment:
+    """One sealed reference ``Segment``: its index, ingest-order columns,
+    id span, generation, TTLs and tombstones."""
+    out = Segment(
+        index=index_from_reference(seg.index),
+        columns=(None if seg.columns is None
+                 else tuple(np.asarray(c) for c in seg.columns)),
+        row_start=int(seg.row_start), generation=int(seg.generation),
+        span_stop=None if seg.span_stop is None else int(seg.span_stop),
+        row_ids=_array(seg.row_ids, np.int64),
+        expiry=_array(seg.expiry, np.float64))
+    tomb = seg.tombstones
+    if tomb is not None:
+        out._apply_tombstone(np.asarray(tomb.data, dtype=np.uint32))
+    return out
+
+
+def writer_from_reference(ref_writer, workload_stats=None) -> IndexWriter:
+    """This package's ``IndexWriter`` holding the same state as
+    ``ref_writer``, a reference-package ``IndexWriter``: every sealed
+    segment (see :func:`_segment`), the open buffer with its deletes and
+    TTLs, the closed flag, and (unless ``workload_stats`` is given) a copy
+    of its workload samples.  Generations carry over unchanged; they only
+    scope result-cache eviction."""
+    segs, buf = ref_writer.snapshot()
+    if buf is not None:
+        cols, deleted, expiry = buf
+        buf = ([np.asarray(c) for c in cols], np.asarray(deleted, dtype=bool),
+               np.asarray(expiry, dtype=np.float64))
+    if workload_stats is None and ref_writer.workload_stats is not None:
+        workload_stats = WorkloadStats()
+        workload_stats.merge_snapshot(ref_writer.workload_stats.snapshot())
+    spec = IndexSpec.from_dict(ref_writer.spec.to_dict())
+    return IndexWriter.from_parts(
+        spec, names=ref_writer.names, segments=[_segment(s) for s in segs],
+        buffer=buf, closed=ref_writer.closed, seal_rows=ref_writer.seal_rows,
+        materialize=ref_writer.materialize, clock=ref_writer.clock,
+        workload_stats=workload_stats)

@@ -1,25 +1,37 @@
-"""Core: EWAH compression, k-of-N and bit-sliced/binned encodings,
-histogram-aware row/column reordering, the predicate algebra and planner,
-and the torch execution backend.  ``BitmapIndex.build`` constructs an index
-in one call; queries run on ``backend="torch"`` by default."""
+"""Core: EWAH compression, k-of-N, bit-sliced, binned and Roaring encodings,
+histogram-aware row/column reordering, compressed-domain logical ops, behind
+one composable API: IndexSpec (strategy registry) -> IndexWriter (append /
+seal / compact lifecycle) -> Segment / SegmentedIndex -> predicate algebra
+(query.Eq/In/Range/And/Or/Not) -> pluggable backends, with the torch
+execution backend the default.  BitmapIndex.build is the seal-once
+convenience over the writer."""
 
-from . import (column_order, encoding, encodings, ewah, ewah_stream,
-               histogram, index_size, query, sorting, strategies)
+from . import (column_order, containers, encoding, encodings, ewah,
+               ewah_stream, histogram, index_size, query, sorting, strategies)
 from .bitmap_index import BitmapIndex, assign_codes, index_size_report
 from .ewah_stream import EwahStream
+from .lifecycle import (BackgroundCompactor, IndexWriter, compact,
+                        size_tiered_pick)
 from .query import (And, Eq, In, Not, NumpyBackend, Or, Range, TorchBackend,
                     evaluate_mask)
+from .segment import Segment, SegmentedIndex
 from .strategies import IndexSpec
 
 __all__ = [
+    "BackgroundCompactor",
     "BitmapIndex",
     "EwahStream",
     "IndexSpec",
+    "IndexWriter",
     "NumpyBackend",
+    "Segment",
+    "SegmentedIndex",
     "TorchBackend",
     "assign_codes",
+    "compact",
     "evaluate_mask",
     "index_size_report",
+    "size_tiered_pick",
     "And",
     "Eq",
     "In",
@@ -27,6 +39,7 @@ __all__ = [
     "Or",
     "Range",
     "column_order",
+    "containers",
     "encoding",
     "encodings",
     "ewah",
@@ -37,3 +50,7 @@ __all__ = [
     "sorting",
     "strategies",
 ]
+
+# import-cycle note: segment/lifecycle import bitmap_index at module level;
+# bitmap_index reaches lifecycle lazily inside build(), so the order above
+# (bitmap_index first) is load-bearing.

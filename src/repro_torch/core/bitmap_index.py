@@ -5,11 +5,12 @@ resolved through the strategy registry (row order, code enumeration, value
 policy, column order); queries go through the predicate algebra + planner in
 :mod:`repro.core.query`.
 
-``BitmapIndex.build`` runs the construction pipeline (:func:`_construct`)
-over the whole table directly.  The reference package reaches the same
-function through a one-segment ``IndexWriter``; the incremental lifecycle
-(writer, segments, compaction) is not ported yet (ROADMAP.md, queue 1).
-Queries default to the ``"torch"`` backend, which runs on the CUDA device.
+``BitmapIndex.build`` is a *seal-once convenience* over the incremental
+lifecycle (:mod:`repro_torch.core.lifecycle`): it appends the whole table
+to an :class:`~repro_torch.core.lifecycle.IndexWriter` and closes it into a
+single segment.  Streaming ingestion, per-batch sealing, and compaction live on
+the writer; see docs/lifecycle.md.  Queries default to the ``"torch"``
+backend, which runs on the CUDA device.
 
 Two paths:
   * ``BitmapIndex`` materializes per-bitmap EWAH streams (supports predicate
@@ -27,6 +28,7 @@ table).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from time import perf_counter
 
 import numpy as np
 
@@ -36,6 +38,14 @@ from .histogram import column_histogram
 from .query import compile_plan, get_backend
 from .strategies import IndexSpec
 
+
+def _observe_workload(plans, seconds: float) -> None:
+    """Feed one executed batch into the workload-telemetry subsystem
+    (lazy import: the core package must not depend on repro_torch.workload
+    at import time)."""
+    from ..workload import record_execution
+
+    record_execution(plans, seconds)
 
 _LEGACY_KWARGS = ("k", "row_order", "code_order", "value_policy",
                   "column_order")
@@ -116,8 +126,9 @@ class BitmapIndex:
     @staticmethod
     def build(table_cols: list, spec: IndexSpec | None = None, *,
               materialize: bool = True, **removed) -> "BitmapIndex":
-        """End-to-end Algorithm-1-style construction over the whole table
-        (:func:`_construct`, one call, no segment lifecycle).
+        """End-to-end Algorithm-1-style construction: a seal-once
+        convenience over :class:`~repro_torch.core.lifecycle.IndexWriter`
+        (append everything, close into one segment, return its index).
 
         table_cols: list of (n,) integer value-id arrays (0-based, dense ids).
         spec: IndexSpec naming the row-order / code-order / value-policy /
@@ -128,9 +139,14 @@ class BitmapIndex:
             raise TypeError(
                 f"second argument must be an IndexSpec, got {spec!r}; the old "
                 "positional form build(cols, k) is gone — pass IndexSpec(k=...)")
-        if not table_cols or len(table_cols[0]) == 0:
+        from .lifecycle import IndexWriter
+
+        writer = IndexWriter(spec, materialize=materialize)
+        writer.append(table_cols)
+        seg = writer.close()
+        if seg is None:
             raise ValueError("cannot build an index over zero rows")
-        return _construct(table_cols, spec, materialize=materialize)
+        return seg.index
 
     # -- stats -------------------------------------------------------------
 
@@ -150,7 +166,10 @@ class BitmapIndex:
         reordered row space (``self.row_perm[row_ids]`` maps back).
         """
         plan = compile_plan(self, pred, names=names)
-        return get_backend(backend, **backend_opts).execute(plan)
+        t0 = perf_counter()
+        out = get_backend(backend, **backend_opts).execute(plan)
+        _observe_workload([plan], perf_counter() - t0)
+        return out
 
     def query_compressed(self, pred, backend: str = "torch", names=None,
                          **backend_opts):
@@ -160,7 +179,10 @@ class BitmapIndex:
         sub-plan results are memoized in the backend's LRU result cache so
         cascaded predicates reuse shared work."""
         plan = compile_plan(self, pred, names=names)
-        return get_backend(backend, **backend_opts).execute_compressed(plan)
+        t0 = perf_counter()
+        out = get_backend(backend, **backend_opts).execute_compressed(plan)
+        _observe_workload([plan], perf_counter() - t0)
+        return out
 
     def query_many(self, preds, backend: str = "torch", names=None,
                    **backend_opts):
@@ -168,7 +190,10 @@ class BitmapIndex:
         plans share one padded device dispatch.  Returns a list of
         (row_ids, words_scanned)."""
         plans = [compile_plan(self, p, names=names) for p in preds]
-        return get_backend(backend, **backend_opts).execute_many(plans)
+        t0 = perf_counter()
+        out = get_backend(backend, **backend_opts).execute_many(plans)
+        _observe_workload(plans, perf_counter() - t0)
+        return out
 
     def equality_query(self, col_idx: int, value: int, backend: str = "torch"):
         """Rows where column == value (planner-compiled AND of the value's
@@ -196,8 +221,8 @@ def _construct(table_cols: list, spec: IndexSpec | None,
                encoding_chooser=None) -> "BitmapIndex":
     """The actual Algorithm-1 pipeline over one run of rows.
 
-    This is what ``BitmapIndex.build`` runs (the reference package's
-    ``IndexWriter.seal`` runs it per segment): column
+    This is what :meth:`IndexWriter.seal` runs per segment (and what
+    ``BitmapIndex.build`` reaches through its one-segment writer): column
     histograms -> column permutation -> row sort -> per-column encoding
     choice (the spec's ``encoding`` strategy reads each histogram) ->
     per-encoding EWAH streams (k-of-N value bitmaps, bit-slice planes,
@@ -205,8 +230,9 @@ def _construct(table_cols: list, spec: IndexSpec | None,
     :mod:`repro.core.encodings`).
 
     ``encoding_chooser(original_col, hist, k) -> kind | None`` overrides
-    the spec's static chooser per column (the reference package's
-    compaction passes its workload-driven chooser here); a None return
+    the spec's static chooser per column — the workload-driven
+    re-encoding hook compaction passes down
+    (:func:`repro_torch.workload.make_compaction_chooser`); a None return
     defers that column back to the spec.
     """
     spec = (spec or IndexSpec()).validate()

@@ -20,8 +20,9 @@ A :class:`ContainerSet` is one compressed row set: parallel arrays of chunk
 keys, container classes, and payloads.  Classes are re-chosen after every
 merge, so ORing two adjacent run containers re-coalesces rather than
 degrading to arrays.  The numpy merge path here is the streaming oracle a
-device backend must match bit-for-bit (the torch backend's container fold
-is not ported yet; see ROADMAP.md).  Container sets convert to the canonical
+device backend must match bit-for-bit (``TorchBackend._container_fold``
+batches each round into the ``containerops`` and ``member`` kernels).
+Container sets convert to the canonical
 :class:`~repro.core.ewah_stream.EwahStream` word format via
 :func:`to_stream` at plan roots, so caching, tombstone ANDs, fan-out
 shipping, and the ``REPRO_SANITIZE=1`` validators never see a container.

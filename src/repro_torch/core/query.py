@@ -1163,7 +1163,10 @@ class TorchBackend:
     ``wordops_fold`` per tree level, ``slice_fold`` per comparison and the
     ``recompress`` kernel at the root.  Compressed results re-encode on the
     device (``ewah_torch.compress_from_runs``) up to ``MAX_DIRTY`` words a
-    row and on the host above it, exactly as the reference does.
+    row and on the host above it, exactly as the reference does.  Roaring
+    columns' ``("cfold", ...)`` nodes fold first, one round at a time,
+    through the ``containerops`` and ``member`` kernels
+    (:meth:`_container_fold`).
 
     ``device=None`` is the CUDA device and raises where there is none;
     ``device="cpu"`` runs every kernel's plain PyTorch version instead.
@@ -1264,16 +1267,88 @@ class TorchBackend:
     def _to_device(self, batch, lengths):
         """Host (B, m, C) uint32 streams and (B, m) lengths -> int32
         bit-view tensors on the backend's device."""
-        import torch
-
-        return (torch.from_numpy(batch.view(np.int32)).to(self.device),
-                torch.from_numpy(lengths).to(self.device))
+        return self._tensor(batch), self._tensor(lengths)
 
     def _container_fold(self, csets, fops, n_rows):
-        raise NotImplementedError(
-            "Roaring container folds are not ported to the torch backend "
-            "yet (ROADMAP.md, queue 1 item 4: container fold on kernels 5-6); "
-            "use the numpy backend for Roaring-encoded columns")
+        """Batched device evaluation of a ``("cfold", ...)`` node.
+
+        Each fold round dispatches its same-chunk container pairs by
+        class: array-with-bitmap intersections of an ``"and"`` round batch
+        into ONE padded ``member`` kernel launch
+        (``kernels.ops.container_gallop``), every other pair expands to
+        word form and batches into ONE ``containerops`` launch per round
+        (``kernels.ops.container_pairs``).  Chunks present on only one side
+        short-circuit by op semantics.  The accumulated set compresses to
+        the same canonical EWAH stream as the numpy streaming path
+        (``containers.fold``); tests assert bit identity.  Unknown
+        container classes raise (``chunk_words`` / ``_MERGE_OPS``
+        dispatch), never fall through.
+        """
+        from . import containers as C
+        from ..kernels import ops as kops
+
+        if not csets:
+            return C.fold(csets, fops, n_rows)
+        acc = {int(k): (int(c), p) for k, c, p in
+               zip(csets[0].keys, csets[0].classes, csets[0].payloads)}
+        for op, nxt in zip(fops, csets[1:]):
+            if op not in C._MERGE_OPS:
+                raise ValueError(f"unknown container merge op {op!r}")
+            rhs = {int(k): (int(c), p) for k, c, p in
+                   zip(nxt.keys, nxt.classes, nxt.payloads)}
+            out = {}
+            if op in ("or", "andnot"):
+                out.update((k, v) for k, v in acc.items() if k not in rhs)
+            if op == "or":
+                out.update((k, v) for k, v in rhs.items() if k not in acc)
+            gallop, pairs = [], []
+            for k in sorted(set(acc) & set(rhs)):
+                (ca, pa), (cb, pb) = acc[k], rhs[k]
+                if op == "and" and {ca, cb} == {C.ARRAY, C.BITMAP}:
+                    gallop.append((k, ca, pa, cb, pb))
+                else:
+                    pairs.append((k, ca, pa, cb, pb))
+            if gallop:
+                width = max(len(pa) if ca == C.ARRAY else len(pb)
+                            for _, ca, pa, _, pb in gallop)
+                pos = np.full((len(gallop), width), -1, dtype=np.int32)
+                wrd = np.empty((len(gallop), C.CHUNK_WORDS), dtype=np.uint32)
+                for i, (_, ca, pa, cb, pb) in enumerate(gallop):
+                    arr = pa if ca == C.ARRAY else pb
+                    pos[i, : len(arr)] = arr
+                    wrd[i] = pb if cb == C.BITMAP else pa
+                hits = kops.container_gallop(
+                    self._tensor(pos), self._tensor(wrd)).cpu().numpy()
+                for i, (k, ca, pa, cb, pb) in enumerate(gallop):
+                    arr = np.asarray(pa if ca == C.ARRAY else pb,
+                                     dtype=np.int64)
+                    kept = arr[hits[i, : len(arr)].astype(bool)]
+                    if len(kept):
+                        out[k] = C.make_chunk(kept)
+            if pairs:
+                lhs = np.stack([C.chunk_words(ca, pa)
+                                for _, ca, pa, _, _ in pairs])
+                rhs_w = np.stack([C.chunk_words(cb, pb)
+                                  for _, _, _, cb, pb in pairs])
+                merged = kops.container_pairs(
+                    self._tensor(lhs), self._tensor(rhs_w), op)
+                merged = merged.cpu().numpy().view(np.uint32)
+                for i, (k, *_cls) in enumerate(pairs):
+                    if merged[i].any():
+                        out[k] = (C.BITMAP, merged[i])
+            acc = out
+        keys = sorted(acc)
+        final = C.ContainerSet(n_rows, keys, [acc[k][0] for k in keys],
+                               [acc[k][1] for k in keys])
+        return C.to_stream(final)
+
+    def _tensor(self, arr):
+        """A host int32 or uint32 array -> an int32 (bit-view) tensor on
+        the backend's device."""
+        import torch
+
+        return torch.from_numpy(
+            np.ascontiguousarray(arr).view(np.int32)).to(self.device)
 
     def _fused_tape(self, root):
         """The lowered instruction tape for ``root`` when the planfuse

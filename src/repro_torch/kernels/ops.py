@@ -17,6 +17,7 @@ from functools import lru_cache
 import torch
 
 from ..core import ewah_torch
+from . import containers as _containers
 from . import ewah_decode as _decode
 from . import planfuse as _planfuse
 from . import recompress as _recompress
@@ -26,7 +27,7 @@ from . import wordops as _wordops
 
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
-            "ewah_decode": 0}
+            "ewah_decode": 0, "containerops": 0, "member": 0}
 
 _OP_NAMES = ("and", "or", "xor")
 
@@ -212,6 +213,52 @@ def ewah_decode(batch, lengths, n_words: int):
     if B and m and C and n_words:
         _decode.launch(batch, lengths, n_words, out)
         LAUNCHES["ewah_decode"] += 1
+    elif out.numel():
+        out.zero_()
+    return out
+
+
+def container_pairs(a, b, op="and"):
+    """Batched Roaring-container merge in word space: (P, W) pairs ->
+    (P, W) with ``op`` in {"and", "or", "andnot"}; one launch for a whole
+    fold round's chunk pairs (W = ``containers.CHUNK_WORDS`` in the
+    backend)."""
+    if op not in _containers.OPS:
+        raise ValueError(f"unknown container merge op {op!r}")
+    if a.shape != b.shape:
+        raise ValueError(f"container_pairs: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ")
+    if _on_cpu(a, b):
+        return ref.container_pairs(a, b, op)
+    _check_cuda("container_pairs", a, b)
+    out = torch.empty_like(a)
+    if a.numel():
+        _containers.launch_pairs(a, b, op, out)
+        LAUNCHES["containerops"] += 1
+    return out
+
+
+def container_gallop(positions, words):
+    """Array-with-bitmap membership for a batch of chunk pairs.
+
+    ``positions``: (P, L) int32 local chunk positions, right-padded with
+    -1.  ``words``: (P, W) int32 bitmap rows (W =
+    ``containers.CHUNK_WORDS`` in the backend).  Returns (P, L) int32
+    flags: 1 where the bitmap holds the position, 0 for misses and
+    padding.  The kernel gathers each position's word itself.
+    """
+    if positions.dim() != 2 or words.dim() != 2 or \
+            positions.shape[0] != words.shape[0]:
+        raise ValueError(f"container_gallop: positions "
+                         f"{tuple(positions.shape)} and words "
+                         f"{tuple(words.shape)} do not pair up")
+    if _on_cpu(positions, words):
+        return ref.container_gallop(positions, words)
+    _check_cuda("container_gallop", positions, words)
+    out = torch.empty_like(positions)
+    if positions.numel() and words.shape[1]:
+        _containers.launch_member(positions, words, out)
+        LAUNCHES["member"] += 1
     elif out.numel():
         out.zero_()
     return out

@@ -50,6 +50,26 @@ def recompress(w, p):
     return kind, (kind != ewah_torch.classify(p)).to(torch.int32)
 
 
+def container_pairs(a, b, op="and"):
+    if op == "and":
+        return a & b
+    if op == "or":
+        return a | b
+    return a & ~b
+
+
+def container_gallop(positions, words):
+    """(P, L) positions and (P, W) bitmap rows -> (P, L) 0/1 flags: bit
+    ``pos & 31`` of word ``pos >> 5``; 0 for padding (-1) and for any
+    position outside the row's W words."""
+    n_bits = words.shape[1] * 32
+    valid = (positions >= 0) & (positions < n_bits)
+    safe = torch.where(valid, positions, 0)
+    w = torch.gather(words, 1, (safe >> 5).long())
+    hits = (w >> (safe & 31)) & 1  # arithmetic shift: bit 0 is still the bit
+    return torch.where(valid, hits, 0).to(torch.int32)
+
+
 def ewah_decode(batch, lengths, n_words: int):
     """(B, m, C) EWAH streams with (B, m) lengths -> (m, B, n_words) words.
 

@@ -20,6 +20,7 @@ import repro_torch.core as T
 from repro_torch.core import ewah
 from repro_torch.core.query import NumpyBackend, TorchBackend, compile_plan
 from repro_torch.kernels import ops, ref
+from repro_torch.workload import WorkloadStats
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +140,82 @@ def test_backend_on_card_matches_numpy(dev, fuse):
     used = ["planfuse"] if fuse else ["wordops", "slicefold", "recompress"]
     assert ops.LAUNCHES["ewah_decode"] > 0
     assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+
+
+@pytest.mark.parametrize("P", [3, 16])  # 16-byte path on any P x 2048 words
+def test_container_kernels_match_plain_versions(dev, P):
+    from repro_torch.core import containers as C
+
+    r = np.random.default_rng(P)
+    a = mixed_words((P, C.CHUNK_WORDS), seed=P).to(dev)
+    b = mixed_words((P, C.CHUNK_WORDS), seed=P + 1).to(dev)
+    ops.reset_launches()
+    for op in ("and", "or", "andnot"):
+        got = ops.container_pairs(a, b, op)
+        want = ref.container_pairs(a, b, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    odd = ops.container_pairs(a[:, :37].contiguous(), b[:, :37].contiguous(),
+                              "andnot")                  # 4-byte path
+    assert torch.equal(odd, ref.container_pairs(a[:, :37], b[:, :37],
+                                                "andnot"))
+    pos = np.full((P, 300), -1, dtype=np.int32)
+    for i in range(P):
+        size = int(r.integers(1, 300))
+        q = np.unique(r.integers(0, C.CHUNK_ROWS, size=size))
+        pos[i, : len(q)] = q
+    pos[0, :3] = (0, 31, C.CHUNK_ROWS - 1)
+    pos_t = torch.from_numpy(pos).to(dev)
+    got = ops.container_gallop(pos_t, a)
+    want = ref.container_gallop(pos_t, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert not got[pos_t < 0].any()
+    assert ops.LAUNCHES["containerops"] == 4 and ops.LAUNCHES["member"] == 1
+
+
+def test_container_fold_on_card_matches_numpy(dev):
+    from repro_torch.core import containers as C
+
+    n = 16 * C.CHUNK_ROWS
+    r = np.random.default_rng(21)
+    sets = [C.from_positions(np.flatnonzero(r.random(n) < d), n)
+            for d in (0.002, 0.3, 0.05, 0.3)]
+    ops.reset_launches()
+    be = TorchBackend()
+    for fops in (("and", "or", "andnot"), ("and", "and", "and"),
+                 ("or", "andnot", "and")):
+        np.testing.assert_array_equal(be._container_fold(sets, fops, n),
+                                      C.fold(sets, fops, n))
+    assert ops.LAUNCHES["member"] > 0 and ops.LAUNCHES["containerops"] > 0
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_lifecycle_on_card_matches_numpy(dev, fuse):
+    r = np.random.default_rng(4)
+    cols = [r.integers(0, c, size=3000) for c in (7, 11, 300)]
+    stats = WorkloadStats()
+    for i in range(64):
+        stats.record(0, "eq", 1, "equality", 1, 40.0 + i % 3)
+        stats.record(1, "eq", 1, "equality", 1, 40.0 + i % 3)
+    w = T.IndexWriter(T.IndexSpec(row_order="lex", encoding="auto"),
+                      workload_stats=stats)
+    for lo in range(0, 3000, 1000):
+        w.append([c[lo : lo + 1000] for c in cols])
+        w.seal()
+    dead = w.delete(T.Range(2, 10, 20))                  # on the card
+    seg = w.compact(span=(0, 2))
+    assert seg.index.encodings()[:2] == ("roaring", "roaring")
+    alive = ~T.evaluate_mask(T.Range(2, 10, 20), cols)
+    assert dead == int((~alive).sum())
+    preds = [T.Eq(0, 3), T.In(1, [1, 5]), T.And(T.Eq(0, 2), T.Range(2, 5, 90)),
+             T.Or(T.Eq(1, 4), T.Not(T.Eq(0, 1)))]
+    ops.reset_launches()
+    got = w.index.query_many(preds, fuse=fuse)
+    want = w.index.execute_compressed_many(preds, backend="numpy")
+    comp = w.index.execute_compressed_many(preds, fuse=fuse)
+    for p, (rows, _), (_, ws), (_, cs) in zip(preds, got, want, comp):
+        np.testing.assert_array_equal(
+            rows, np.flatnonzero(T.evaluate_mask(p, cols) & alive))
+        np.testing.assert_array_equal(cs.data, ws.data)
+    assert ops.LAUNCHES["containerops"] > 0

@@ -7,8 +7,10 @@
   and ``NumpyBackend``, on an index carried across by
   ``convert.index_from_reference``, with the ``PREDICATES`` of
   test_planfuse.py, also under ``REPRO_SANITIZE=1``;
-* the Hopper gate, the CUDA-only default device, the unported container
-  fold, and the package's import isolation.
+* Roaring columns: container sets identical to the reference's, and
+  their container folds answering like ``NumpyBackend``;
+* the Hopper gate, the CUDA-only default device, and the package's import
+  isolation.
 
 Tables are made with numpy from fixed seeds (about 2,000 rows).  Every
 comparison is bit-identical.  test_torch_cuda.py runs the backend on the
@@ -33,7 +35,25 @@ from repro_torch.core import query as TQ
 from repro_torch.core.query import NumpyBackend, TorchBackend, compile_plan
 from repro_torch.kernels import planfuse
 
-ENCODINGS = ["equality", "bitsliced", "bitsliced-gray", "binned"]
+ENCODINGS = ["equality", "bitsliced", "bitsliced-gray", "binned", "roaring"]
+
+
+def assert_columns_equal(got, want):
+    """Same streams, or for Roaring columns the same container sets (keys,
+    classes and payloads of every value's set)."""
+    assert got.encoding.kind == want.encoding.kind
+    assert len(got.streams) == len(want.streams)
+    for sg, sw in zip(got.streams, want.streams):
+        if got.encoding.kind == "roaring":
+            np.testing.assert_array_equal(sg.keys, sw.keys)
+            np.testing.assert_array_equal(sg.classes, sw.classes)
+            assert len(sg.payloads) == len(sw.payloads)
+            for pg, pw in zip(sg.payloads, sw.payloads):
+                assert pg.dtype == pw.dtype
+                np.testing.assert_array_equal(pg, pw)
+        else:
+            np.testing.assert_array_equal(sg, sw)
+    np.testing.assert_array_equal(got.sizes, want.sizes)
 
 
 def predicates(P):
@@ -73,10 +93,7 @@ def test_build_matches_reference(encoding):
     assert got.encodings() == want.encodings()
     assert got.spec.to_dict() == want.spec.to_dict()
     for cg, cw in zip(got.columns, want.columns):
-        assert len(cg.streams) == len(cw.streams)
-        for sg, sw in zip(cg.streams, cw.streams):
-            np.testing.assert_array_equal(sg, sw)
-        np.testing.assert_array_equal(cg.sizes, cw.sizes)
+        assert_columns_equal(cg, cw)
 
 
 def test_build_k2_grayfreq_matches_reference():
@@ -107,10 +124,14 @@ def test_torch_backend_matches_jax_and_numpy(encoding):
     idx = index_from_reference(ref)
     r_plans = [R.query.compile_plan(ref, p) for p in predicates(R)]
     t_plans = [compile_plan(idx, p) for p in predicates(T)]
-    jax_streams = JaxBackend(use_kernel=False).execute_compressed_many(r_plans)
+    # Roaring plans reach the Pallas container kernels, run as the
+    # reference's own tests run them: in interpret mode
+    jax = (JaxBackend(interpret=True) if encoding == "roaring"
+           else JaxBackend(use_kernel=False))
+    jax_streams = jax.execute_compressed_many(r_plans)
     np_streams = [RefNumpyBackend().execute_compressed(p) for p in r_plans]
-    jax_rows = (JaxBackend(use_kernel=False).execute_many(r_plans)
-                if encoding == "equality" else None)
+    jax_rows = (jax.execute_many(r_plans)
+                if encoding in ("equality", "roaring") else None)
     for fuse in (True, False):
         be = TorchBackend(device="cpu", fuse=fuse)
         got = be.execute_compressed_many(t_plans)
@@ -128,10 +149,27 @@ def test_torch_backend_matches_jax_and_numpy(encoding):
 
 
 def test_fused_tape_used_and_per_stage_when_not_fused():
+    """The default backend lowers a small plan to its planfuse tape,
+    ``fuse=False`` lowers nothing, and both answer identically (and like
+    ``NumpyBackend``)."""
     idx = index_from_reference(ref_index("equality"))
-    plan = compile_plan(idx, predicates(T)[-1])
-    assert TorchBackend(device="cpu")._fused_tape(plan.root) is not None
-    assert TorchBackend(device="cpu", fuse=False)._fused_tape(plan.root) is None
+    plans = [compile_plan(idx, p) for p in predicates(T)]
+    root = plans[-1].root
+    fused = TorchBackend(device="cpu")
+    per_stage = TorchBackend(device="cpu", fuse=False)
+    tape = fused._fused_tape(root)
+    assert tape is not None and tape == TQ.lower_plan(root)[0]
+    assert per_stage._fused_tape(root) is None
+    want = NumpyBackend().execute_compressed_many(plans)
+    got_f = fused.execute_compressed_many(plans)
+    got_p = per_stage.execute_compressed_many(plans)
+    rows_f = fused.execute_many(plans)
+    rows_p = per_stage.execute_many(plans)
+    for f, p, w, rf, rp in zip(got_f, got_p, want, rows_f, rows_p):
+        np.testing.assert_array_equal(f.data, p.data)
+        np.testing.assert_array_equal(f.data, w.data)
+        np.testing.assert_array_equal(rf[0], rp[0])
+        np.testing.assert_array_equal(rf[0], w.to_rows())
 
 
 def test_under_sanitizer():
@@ -240,16 +278,25 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert TorchBackend(device="cpu").device.type == "cpu"
 
 
-def test_container_fold_not_ported():
+@pytest.mark.parametrize("fuse", [True, False])
+def test_roaring_plans_answer_like_numpy(fuse):
+    """Roaring columns' container folds run on the torch backend (the
+    plain versions of the containerops and member kernels here) and answer
+    like ``NumpyBackend`` and ``evaluate_mask``."""
     cols = table(n=700, seed=4)
     idx = T.BitmapIndex.build(cols, T.IndexSpec(encoding="roaring"))
-    plan = compile_plan(idx, T.Eq(0, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchBackend(device="cpu").execute_compressed(plan)
-    # the host backend still answers Roaring plans
-    rows = NumpyBackend().execute(compile_plan(idx, T.Eq(0, 1)))[0]
-    np.testing.assert_array_equal(np.sort(idx.row_perm[rows]),
-                                  np.flatnonzero(cols[0] == 1))
+    assert set(idx.encodings()) == {"roaring"}
+    preds = predicates(T)
+    plans = [compile_plan(idx, p) for p in preds]
+    be = TorchBackend(device="cpu", fuse=fuse)
+    got = be.execute_compressed_many(plans)
+    rows = be.execute_many(plans)
+    want = NumpyBackend().execute_compressed_many(plans)
+    for p, s, w, (r, _) in zip(preds, got, want, rows):
+        np.testing.assert_array_equal(s.data, w.data)
+        np.testing.assert_array_equal(r, w.to_rows())
+        np.testing.assert_array_equal(np.sort(idx.row_perm[r]),
+                                      np.flatnonzero(T.evaluate_mask(p, cols)))
 
 
 def test_package_imports_no_jax_and_no_reference():
