@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the six CUDA libraries (seven kernels) from
+1. builds the ten CUDA libraries (eleven kernels) from
    ``src/repro_torch/csrc`` with nvcc for sm_90a and prints the card's
    name and power limit;
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
@@ -36,9 +36,21 @@ reference package, and:
    answers the 64-predicate mix through ``SegmentedIndex.query_many`` and
    ``execute_compressed_many``, fused and per stage, against
    ``evaluate_mask`` over the live rows and ``backend="numpy"``;
-7. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+7. MoE dispatch phase: ``models.moe_dispatch.run`` at 16,384 tokens for
+   qwen2-moe-a2.7b (4-of-60) and olmoe-1b-7b (8-of-64) and the example's
+   8,192 tokens (8-of-64), packing on the card through ``moe_route_bitmap``;
+   requires both ``validate`` checks, words identical to ``ref.moe_route``
+   and ``routing_bitmap_words(...).T``, and times ``moe_route`` at
+   1,048,576 tokens of olmoe's routing;
+8. build-primitives phase on the dbgen-like index: ``bitpack`` of the two
+   small columns' one-hot in row order against the index's own equality
+   bitmaps, ``histogram`` of all four columns and census-like's widest
+   against ``column_histogram``, ``gray`` forward and back against
+   ``to_gray`` / ``from_gray``; each held bit for bit against its plain
+   version and timed (``histogram`` beside ``torch.bincount``);
+9. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-8. prints the card line, the ``{"kernels": [...]}`` line and, last,
+10. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -78,11 +90,23 @@ KERNELS = {
                      "src/repro/kernels/containers.py:46"),
     "member": ("src/repro_torch/csrc/containers.cu",
                "src/repro/kernels/containers.py:71"),
+    "bitpack": ("src/repro_torch/csrc/bitpack.cu",
+                "src/repro/kernels/bitpack.py:30"),
+    "gray": ("src/repro_torch/csrc/gray.cu", "src/repro/kernels/gray.py:30"),
+    "histogram": ("src/repro_torch/csrc/histmm.cu",
+                  "src/repro/kernels/histmm.py:40"),
+    "moe_route": ("src/repro_torch/csrc/moe_route.cu",
+                  "src/repro/kernels/moe_route.py:37"),
 }
 CONTAINER_ROWS = 1_000_000           # 16 Roaring chunks of 65,536 rows
 CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
 # the lifecycle phase's sealed batches; the rest of the table stays open
 LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
+MOE_TOKENS = 16_384                  # bench_moe_dispatch.run's own T
+MOE_EXAMPLE = (8192, 64, 8)          # examples/moe_bitmap_dispatch.py
+MOE_TIMED = (256 * 4096, 64, 8)      # 256 sequences x 4096, olmoe's E, k
+BITPACK_TIMED_VALUES = 512           # one-hot width of the timed bitpack
+GRAY_TIMED_WORDS = 2**26
 
 
 class SmokeFailure(Exception):
@@ -715,6 +739,269 @@ def lifecycle_phase(torch, T, cols, cards, preds, device, scale):
     return result
 
 
+def held(torch, name, kern, plain):
+    """Run a kernel and its plain version on the same inputs; fail unless
+    they agree bit for bit.  Returns (max_abs_err, mismatches)."""
+    got, want = kern(), plain()
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    sync(torch, got[0].device.type)
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max_err(torch, got, want)
+    check(mism == 0 and err == 0,
+          f"{name} kernel disagrees with its plain version")
+    return err, mism
+
+
+def timed_entry(torch, name, kern, plain, nbytes, nops, reps, flush,
+                library=None, shape=None):
+    """Hold ``kern`` against ``plain`` and time both (and ``library``, one
+    PyTorch call computing the same function) with CUDA events."""
+    err, mism = held(torch, name, kern, plain)
+    bound_ms, bound_by = bound(nbytes, nops)
+    entry = {"max_abs_err": err, "mismatches": mism,
+             "ms": event_ms(torch, kern, reps, flush),
+             "plain_ms": event_ms(torch, plain, reps, flush),
+             "library_ms": (None if library is None else
+                            event_ms(torch, library, reps, flush)),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+             "shape": shape}
+    share = bound_ms / max(entry["ms"], 1e-9)
+    log(f"[timing] {name} {shape}: mismatches {mism}, max_abs_err {err} "
+        f"(tolerance 0: bit identity), {entry['ms']:.5f} ms (bound "
+        f"{bound_ms:.5f} ms, {bound_by}; {share:.1%} of it), plain "
+        f"{entry['plain_ms']:.5f} ms, library {entry['library_ms']}")
+    return entry
+
+
+def moe_dispatch_phase(torch, device, reps):
+    """The MoE dispatch-bitmap path: ``moe_dispatch.run`` at
+    bench_moe_dispatch's T for both architectures and the example's
+    8192 x 8-of-64, through ``moe_route_bitmap`` on the card; the words
+    held against ``ref.moe_route`` and ``routing_bitmap_words``, both
+    ``validate`` checks required; then ``moe_route`` timed at a million
+    tokens of olmoe's routing."""
+    from repro_torch.core import ewah
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe_dispatch as MD
+    from repro_torch.models.moe import routing_bitmap_words
+
+    out = {}
+    T_ex, E_ex, k_ex = MOE_EXAMPLE
+    ex_eids = MD.routed_assignments(T_ex, E_ex, k_ex, skew=1.2)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = MD.run(T=MOE_TOKENS, device=device)
+    example = {o: MD.compressed_dispatch_size(ex_eids, E_ex, order, device)
+               for o, order in MD.token_orders(ex_eids, E_ex, device).items()}
+    sync(torch, device)
+    out["run_s"] = time.perf_counter() - t0
+    out["launches"] = launches = ops.LAUNCHES["moe_route"]
+    check(device == "cpu" or launches > 0,
+          "the MoE dispatch path never launched moe_route")
+    checks = MD.validate(rows)
+    for r in rows:
+        log(f"[moe_dispatch] {r['arch']} T={r['T']} E={r['E']} k={r['k']}: "
+            f"compressed words unsorted {r['words_unsorted']}, expert-sorted "
+            f"{r['words_expert_sorted']}, gray-frequency "
+            f"{r['words_grayfreq']} (uncompressed {r['uncompressed_words']})")
+    log(f"[moe_dispatch] example T={T_ex} E={E_ex} k={k_ex}: compressed "
+        f"words {example} (uncompressed {(T_ex // 32) * E_ex})")
+    for c in checks:
+        log(f"[moe_dispatch] {c}")
+    check(all(c.endswith("PASS") for c in checks),
+          "a bench_moe_dispatch validate check failed")
+    out.update(rows=rows, example=example, checks=checks)
+    log(f"[moe_dispatch] run in {out['run_s']:.3f} s; moe_route launches "
+        f"{launches}")
+
+    # where run()'s time goes, on olmoe's table
+    name, E, k = MD.ARCHS[-1]
+    t0 = time.perf_counter()
+    eids_np = MD.routed_assignments(MOE_TOKENS, E, k)
+    t1 = time.perf_counter()
+    orders = MD.token_orders(eids_np, E, device)
+    t2 = time.perf_counter()
+    packed = [MD.dispatch_words(eids_np, E, o, device) for o in orders.values()]
+    t3 = time.perf_counter()
+    for words in packed:
+        for e in range(E):
+            ewah.compress(words[:, e])
+    t4 = time.perf_counter()
+    out["split"] = {"arch": name, "assignments_s": t1 - t0,
+                    "token_orders_s": t2 - t1, "pack_and_copy_s": t3 - t2,
+                    "host_compress_s": t4 - t3}
+    log("[moe_dispatch] split: " + ", ".join(
+        f"{k_} {v}" for k_, v in out["split"].items()))
+
+    # the words of each routing table against both plain forms
+    for name, E, k in MD.ARCHS:
+        eids = torch.from_numpy(MD.routed_assignments(MOE_TOKENS, E, k)).to(
+            device)
+        words = ops.moe_route_bitmap(eids, E)
+        check(torch.equal(words, ref.moe_route(eids, E)),
+              f"{name}: moe_route words differ from ref.moe_route")
+        check(torch.equal(words, routing_bitmap_words(eids, E).T),
+              f"{name}: moe_route words differ from routing_bitmap_words")
+    log("[moe_dispatch] words of both architectures identical to "
+        "ref.moe_route and routing_bitmap_words(...).T")
+    if device == "cpu":
+        return out
+
+    T_t, E_t, k_t = MOE_TIMED
+    gen = torch.Generator(device=device).manual_seed(0)
+    pop = torch.arange(1, E_t + 1, device=device, dtype=torch.float32) ** -1.2
+    u = torch.rand(T_t, E_t, generator=gen, device=device).clamp_(1e-12, 1)
+    # Gumbel top-k: k distinct experts per token drawn ~ zipf popularity
+    eids = (pop.log() - (-u.log()).log()).topk(k_t, dim=1).indices.to(
+        torch.int32).contiguous()
+    del u
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+    W = -(-T_t // 32)
+    out["kernels"] = {"moe_route": timed_entry(
+        torch, "moe_route", lambda: ops.moe_route_bitmap(eids, E_t),
+        lambda: ref.moe_route(eids, E_t), T_t * k_t * 4 + W * E_t * 4,
+        T_t * k_t + W * E_t, reps, flush, shape=[T_t, k_t, E_t])}
+    return out
+
+
+def build_primitives_phase(torch, data, device, reps):
+    """The paper's build primitives on the card over the dbgen-like index:
+    ``bitpack`` of the two small columns' one-hot in row order against the
+    index's own equality bitmaps, ``histogram`` of every column (and
+    census-like's largest) against ``column_histogram``, ``gray`` forward
+    and back against ``to_gray`` / ``from_gray``; then each timed."""
+    import numpy as np
+
+    from repro_torch.core import ewah
+    from repro_torch.core.encoding import from_gray, to_gray
+    from repro_torch.core.histogram import column_histogram
+    from repro_torch.kernels import ops, ref
+
+    cols, idx = data["dbgen"][0], data["dbgen"][1]
+    census = data["census"][0]
+    n = idx.n_rows
+    W = (n + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+    eq = [i for i, e in enumerate(idx.encodings()) if e == "equality"]
+    check(len(eq) == 2, f"two equality columns expected, got {eq}")
+    on_card = {}
+    for i in eq:
+        enc = idx.columns[i].encoding
+        check(enc.k == 1 and enc.n_streams == enc.card,
+              "one bitmap per value on the small columns")
+        col = cols[idx.col_perm[i]][idx.row_perm]
+        value_of = np.empty(enc.card, dtype=np.int64)
+        value_of[enc.codes[:, 0]] = np.arange(enc.card)   # bitmap -> value
+        on_card[i] = (torch.from_numpy(col).to(device),
+                      torch.from_numpy(value_of).to(device))
+    hist_cols = [(f"dbgen col {c}", col) for c, col in enumerate(cols)]
+    wide = max(range(len(census)), key=lambda c: int(census[c].max()))
+    hist_cols.append((f"census col {wide}", census[wide]))
+    hist_in = [(name, torch.from_numpy(col.astype(np.int32)).to(device),
+                int(col.max()) + 1) for name, col in hist_cols]
+    big = max(range(len(cols)), key=lambda c: int(cols[c].max()))
+    gray_in = torch.from_numpy(cols[big].astype(np.int32)).to(device)
+
+    # the path: every call a user of the index would make, counted
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    packed = {i: ops.bitpack(c[:, None] == v[None, :])
+              for i, (c, v) in on_card.items()}
+    hists = [ops.histogram(x, V) for _, x, V in hist_in]
+    g = ops.gray(gray_in)
+    back = ops.gray(g, inverse=True)
+    sync(torch, device)
+    out = {"path_s": time.perf_counter() - t0}
+    out["launches"] = launches = {k: ops.LAUNCHES[k]
+                                  for k in ("bitpack", "histogram", "gray")}
+    for k, v in launches.items():
+        check(device == "cpu" or v > 0, f"the build primitives never "
+              f"launched {k}")
+
+    for i, words in packed.items():
+        enc = idx.columns[i].encoding
+        got = words.cpu().numpy().view(np.uint32)
+        check(got.shape == (W, enc.card), f"bitpack shape {got.shape}")
+        for b, stream in enumerate(enc.streams):
+            check(np.array_equal(got[:, b], ewah.decompress(stream, W)),
+                  f"bitpack column {i} bitmap {b} differs from the index's "
+                  f"equality stream")
+    n_maps = sum(w.shape[1] for w in packed.values())
+    log(f"[build_primitives] bitpack: {n_maps} bitmaps of {n} rows identical "
+        f"to the index's decompressed equality streams")
+    for (name, x, V), h in zip(hist_in, hists):
+        want = column_histogram(x.cpu().numpy(), V)
+        check(np.array_equal(h.cpu().numpy().astype(np.int64), want),
+              f"histogram of {name} (V={V}) differs from column_histogram")
+    log(f"[build_primitives] histogram: {len(hists)} columns (V = "
+        f"{[V for _, _, V in hist_in]}) identical to column_histogram")
+    host = cols[big].astype(np.uint32)
+    check(np.array_equal(g.cpu().numpy().view(np.uint32),
+                         to_gray(host).astype(np.uint32)),
+          "gray differs from to_gray")
+    check(np.array_equal(back.cpu().numpy().view(np.uint32),
+                         from_gray(to_gray(host)).astype(np.uint32))
+          and torch.equal(back, gray_in), "inverse gray is not the identity")
+    log(f"[build_primitives] gray: {len(host)} ids of the "
+        f"{int(cols[big].max()) + 1}-value column identical to to_gray / "
+        f"from_gray, round trip the identity")
+    log(f"[build_primitives] path {out['path_s']:.4f} s; launches {launches}")
+
+    # every kernel bit for bit against its plain version on the path's inputs
+    out["held"] = {}
+    for i, (c, v) in on_card.items():
+        bits = c[:, None] == v[None, :]
+        out["held"][f"bitpack col {i}"] = held(
+            torch, "bitpack", lambda: ops.bitpack(bits),
+            lambda: ref.bitpack(bits))[0]
+    for name, x, V in hist_in:
+        out["held"][f"histogram {name}"] = held(
+            torch, "histogram", lambda: ops.histogram(x, V),
+            lambda: ref.histogram(x, V))[0]
+    for inverse in (False, True):
+        out["held"][f"gray inverse={inverse}"] = held(
+            torch, "gray", lambda: ops.gray(gray_in, inverse),
+            lambda: ref.gray(gray_in, inverse))[0]
+    if device == "cpu":
+        return out
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+    # the first values of the second-widest column (2526 values)
+    mid = sorted(range(len(cols)), key=lambda c: int(cols[c].max()))[-2]
+    x_mid = torch.from_numpy(cols[mid].astype(np.int32)).to(device)
+    bits = x_mid[:, None] == torch.arange(BITPACK_TIMED_VALUES,
+                                          device=device, dtype=torch.int32)
+    R, C = bits.shape
+    kernels = {"bitpack": timed_entry(
+        torch, "bitpack", lambda: ops.bitpack(bits),
+        lambda: ref.bitpack(bits), R * C + (-(-R // 32)) * C * 4,
+        R * C, reps, flush, shape=[R, C])}
+    del bits
+    per_column = {}
+    for name, x, V in hist_in:
+        per_column[name] = timed_entry(
+            torch, f"histogram {name} V={V}", lambda: ops.histogram(x, V),
+            lambda: ref.histogram(x, V), x.numel() * 4 + V * 4, x.numel(),
+            reps, flush, library=lambda: torch.bincount(x, minlength=V),
+            shape=[x.numel(), V])
+    # the kernels line reports the dbgen-like table's largest column
+    kernels["histogram"] = {**per_column[f"dbgen col {big}"],
+                            "per_column": per_column}
+    gen = torch.Generator(device=device).manual_seed(0)
+    words = torch.randint(-2**31, 2**31, (GRAY_TIMED_WORDS,), generator=gen,
+                          device=device, dtype=torch.int32)
+    kernels["gray"] = timed_entry(
+        torch, "gray", lambda: ops.gray(words), lambda: ref.gray(words),
+        words.numel() * 8, words.numel() * 2, reps, flush,
+        shape=[words.numel()])
+    kernels["gray"]["inverse"] = timed_entry(
+        torch, "gray inverse", lambda: ops.gray(words, inverse=True),
+        lambda: ref.gray(words, inverse=True), words.numel() * 8,
+        words.numel() * 10, reps, flush, shape=[words.numel()])
+    out["kernels"] = kernels
+    return out
+
+
 def profile_kernels(torch, T, plans, device):
     """Device activity of one fused compressed batch of the mix, from
     torch.profiler: time by kernel or copy, by category (the port's
@@ -825,6 +1112,11 @@ def run(device="cuda", scale=1.0, reps=20):
             totals[k] += v
     # member is reached only by direct container folds (see container_phase)
     totals["member"] = report["containers"]["launches"]["member"]
+    report["moe_dispatch"] = moe = moe_dispatch_phase(torch, device, reps)
+    totals["moe_route"] = moe["launches"]
+    report["build_primitives"] = prim = build_primitives_phase(
+        torch, data, device, reps)
+    totals.update(prim["launches"])
     report["launches"] = totals
     if device != "cpu":
         prof = profile_kernels(torch, T, data["dbgen"][3], device)
@@ -865,7 +1157,9 @@ def main():
     report["card"] = card
     report["total_s"] = time.perf_counter() - t_start
     kernels = []
-    timed = {**report["kernels"], **report["containers"]["kernels"]}
+    timed = {**report["kernels"], **report["containers"]["kernels"],
+             **report["moe_dispatch"]["kernels"],
+             **report["build_primitives"]["kernels"]}
     for name, (source, replaces) in KERNELS.items():
         k = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": source,

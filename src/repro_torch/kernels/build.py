@@ -29,7 +29,7 @@ from . import planfuse
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("planfuse", "recompress", "wordops", "slicefold", "ewah_decode",
-           "containers")
+           "containers", "bitpack", "gray", "histmm", "moe_route")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()

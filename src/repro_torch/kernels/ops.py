@@ -17,8 +17,12 @@ from functools import lru_cache
 import torch
 
 from ..core import ewah_torch
+from . import bitpack as _bitpack
 from . import containers as _containers
 from . import ewah_decode as _decode
+from . import gray as _gray
+from . import histmm as _histmm
+from . import moe_route as _moe_route
 from . import planfuse as _planfuse
 from . import recompress as _recompress
 from . import ref
@@ -27,7 +31,8 @@ from . import wordops as _wordops
 
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
-            "ewah_decode": 0, "containerops": 0, "member": 0}
+            "ewah_decode": 0, "containerops": 0, "member": 0, "bitpack": 0,
+            "gray": 0, "histogram": 0, "moe_route": 0}
 
 _OP_NAMES = ("and", "or", "xor")
 
@@ -41,7 +46,12 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _check_cuda(name: str, *tensors) -> None:
+def _check_dtype(name: str, t, dtype=torch.int32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {dtype} tensors expected, got {t.dtype}")
+
+
+def _check_cuda(name: str, *tensors, dtype=torch.int32) -> None:
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensors must all lie on the CPU or all "
@@ -49,9 +59,7 @@ def _check_cuda(name: str, *tensors) -> None:
         if t.device != tensors[0].device:
             raise ValueError(f"{name}: tensors on {tensors[0].device} and "
                              f"{t.device}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"{name}: int32 word tensors expected, "
-                            f"got {t.dtype}")
+        _check_dtype(name, t, dtype)
         if not t.is_contiguous():
             raise ValueError(f"{name}: contiguous tensors expected")
 
@@ -262,3 +270,87 @@ def container_gallop(positions, words):
     elif out.numel():
         out.zero_()
     return out
+
+
+def bitpack(bits):
+    """(R, C) booleans -> (ceil(R/32), C) int32 words: bit j of word w is
+    ``bits[32w + j]``, rows past R are 0 (the paper's "wordize" step).
+
+    Takes ``torch.bool`` only and raises on any other dtype: the reference
+    packs with a shifted sum after ``astype(uint32)``, so a value above 1
+    would carry into the neighbouring bits.  Every caller passes booleans.
+    """
+    if bits.dim() != 2:
+        raise ValueError(f"bitpack: (R, C) bits expected, got shape "
+                         f"{tuple(bits.shape)}")
+    _check_dtype("bitpack", bits, torch.bool)
+    if _on_cpu(bits):
+        return ref.bitpack(bits)
+    _check_cuda("bitpack", bits, dtype=torch.bool)
+    R, C = bits.shape
+    words = torch.empty(-(-R // 32), C, dtype=torch.int32, device=bits.device)
+    if bits.numel():
+        _bitpack.launch(bits, words)
+        LAUNCHES["bitpack"] += 1
+    return words
+
+
+def gray(x, inverse=False):
+    """int32 bit-views of uint32 words -> their Gray codes (``inverse``:
+    back to binary).  Shifts are logical, as on the reference's uint32."""
+    _check_dtype("gray", x)
+    if _on_cpu(x):
+        return ref.gray(x, inverse)
+    _check_cuda("gray", x)
+    out = torch.empty_like(x)
+    if x.numel():
+        _gray.launch(x, inverse, out)
+        LAUNCHES["gray"] += 1
+    return out
+
+
+def histogram(vals, n_values: int):
+    """(T,) int32 values -> (n_values,) float32 counts.  Values outside
+    [0, n_values) are dropped, as the reference kernel's wrapper drops
+    them (its padding slots); counts are exact integers, identical to the
+    reference's float32 sums below 2**24."""
+    if vals.dim() != 1:
+        raise ValueError(f"histogram: (T,) values expected, got shape "
+                         f"{tuple(vals.shape)}")
+    if n_values < 1:
+        raise ValueError(f"histogram: n_values must be >= 1, got {n_values}")
+    _check_dtype("histogram", vals)
+    if _on_cpu(vals):
+        return ref.histogram(vals, n_values)
+    _check_cuda("histogram", vals)
+    counts = torch.empty(n_values, dtype=torch.int32, device=vals.device)
+    out = torch.empty(n_values, dtype=torch.float32, device=vals.device)
+    _histmm.launch(vals, counts, out)
+    LAUNCHES["histogram"] += 1
+    return out
+
+
+def moe_route_bitmap(eids, n_experts: int):
+    """(T, k) int32 top-k expert ids -> (ceil(T/32), n_experts) int32
+    dispatch words: bit j of ``words[w, e]`` is set iff expert e is among
+    the ids of token 32w + j.  A duplicate id sets one bit; -1 and ids
+    >= n_experts set none."""
+    if eids.dim() != 2:
+        raise ValueError(f"moe_route_bitmap: (T, k) ids expected, got shape "
+                         f"{tuple(eids.shape)}")
+    if n_experts < 1:
+        raise ValueError(f"moe_route_bitmap: n_experts must be >= 1, got "
+                         f"{n_experts}")
+    _check_dtype("moe_route_bitmap", eids)
+    if _on_cpu(eids):
+        return ref.moe_route(eids, n_experts)
+    _check_cuda("moe_route_bitmap", eids)
+    T, k = eids.shape
+    words = torch.empty(-(-T // 32), n_experts, dtype=torch.int32,
+                        device=eids.device)
+    if T and k:
+        _moe_route.launch(eids, words)
+        LAUNCHES["moe_route"] += 1
+    elif words.numel():
+        words.zero_()
+    return words

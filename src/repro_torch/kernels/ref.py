@@ -70,6 +70,53 @@ def container_gallop(positions, words):
     return torch.where(valid, hits, 0).to(torch.int32)
 
 
+def bitpack(bits):
+    """(R, C) bool -> (ceil(R/32), C) words: bit j of word w is row
+    32w + j; rows past R are 0."""
+    R, C = bits.shape
+    W = -(-R // 32)
+    if R % 32:
+        padded = torch.zeros(W * 32, C, dtype=torch.bool, device=bits.device)
+        padded[:R] = bits
+        bits = padded
+    b = bits.reshape(W, 32, C)
+    words = torch.zeros(W, C, dtype=torch.int64, device=bits.device)
+    for j in range(32):
+        words |= b[:, j].to(torch.int64) << j
+    return ewah_torch._to_int32_bits(words)
+
+
+def gray(x, inverse=False):
+    """Gray code of int32 bit-views, or its inverse; each right shift is
+    masked to be logical (torch's ``>>`` on int32 is arithmetic)."""
+    if not inverse:
+        return x ^ ((x >> 1) & 0x7FFFFFFF)
+    for s in (1, 2, 4, 8, 16):
+        x = x ^ ((x >> s) & ((1 << (32 - s)) - 1))
+    return x
+
+
+def histogram(vals, n_values: int):
+    """(T,) int values -> (n_values,) float32 counts; values outside
+    [0, n_values) land in a spare slot and are dropped."""
+    valid = (vals >= 0) & (vals < n_values)
+    idx = torch.where(valid, vals, n_values).long()
+    counts = torch.zeros(n_values + 1, dtype=torch.int64, device=vals.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    return counts[:n_values].to(torch.float32)
+
+
+def moe_route(eids, n_experts: int):
+    """(T, k) expert ids -> (ceil(T/32), E) dispatch words; duplicates set
+    one bit, -1 and ids >= E none."""
+    T, k = eids.shape
+    valid = (eids >= 0) & (eids < n_experts)
+    idx = torch.where(valid, eids, n_experts).long()
+    hit = torch.zeros(T, n_experts + 1, dtype=torch.bool, device=eids.device)
+    hit.scatter_(1, idx, True)
+    return bitpack(hit[:, :n_experts])
+
+
 def ewah_decode(batch, lengths, n_words: int):
     """(B, m, C) EWAH streams with (B, m) lengths -> (m, B, n_words) words.
 

@@ -219,3 +219,80 @@ def test_lifecycle_on_card_matches_numpy(dev, fuse):
             rows, np.flatnonzero(T.evaluate_mask(p, cols) & alive))
         np.testing.assert_array_equal(cs.data, ws.data)
     assert ops.LAUNCHES["containerops"] > 0
+
+
+@pytest.mark.parametrize("R,C", [(1000, 512), (333, 36), (70, 7)])
+def test_bitpack_kernel_matches_plain_version(dev, R, C):
+    """16-column and 1-column groups, a ragged last word."""
+    r = np.random.default_rng(R)
+    bits = torch.from_numpy(r.random((R, C)) < 0.4).to(dev)
+    ops.reset_launches()
+    got = ops.bitpack(bits)
+    want = ref.bitpack(bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ones = ops.bitpack(torch.ones(R, C, dtype=torch.bool, device=dev))
+    assert torch.equal(ones, ref.bitpack(torch.ones_like(bits)))
+    assert ops.LAUNCHES["bitpack"] == 2
+
+
+@pytest.mark.parametrize("n", [4096, 4097])  # 16-byte and 4-byte paths
+def test_gray_kernel_matches_plain_version(dev, n):
+    r = np.random.default_rng(n)
+    x = r.integers(0, 2**32, size=n, dtype=np.uint32)
+    x[:4] = (0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 1)
+    x = torch.from_numpy(x.view(np.int32)).to(dev)
+    ops.reset_launches()
+    for inverse in (False, True):
+        got = ops.gray(x, inverse)
+        want = ref.gray(x, inverse)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert torch.equal(ops.gray(ops.gray(x), inverse=True), x)
+    assert ops.LAUNCHES["gray"] == 4
+
+
+@pytest.mark.parametrize("T,V", [(4096, 7), (4097, 2526), (20000, 28571),
+                                 (20001, 99761)])  # the last past smem
+def test_histogram_kernel_matches_plain_version(dev, T, V):
+    r = np.random.default_rng(V)
+    vals = r.integers(-3, V + 3, size=T, dtype=np.int32)  # some dropped
+    vals = torch.from_numpy(vals).to(dev)
+    ops.reset_launches()
+    got = ops.histogram(vals, V)
+    want = ref.histogram(vals, V)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert int(got.sum()) == int(((vals >= 0) & (vals < V)).sum())
+    assert ops.LAUNCHES["histogram"] == 1
+
+
+@pytest.mark.parametrize("T,E,k", [(256, 128, 4), (512, 60, 4), (300, 64, 8),
+                                   (257, 60, 1), (1000, 33, 3)])
+def test_moe_route_kernel_matches_plain_version(dev, T, E, k):
+    r = np.random.default_rng(T + E)
+    eids = r.integers(0, E, size=(T, k), dtype=np.int32)
+    eids[::3, 0] = -1
+    eids[1::5, -1] = E + 6
+    if k > 1:
+        eids[2::7, 1] = eids[2::7, 0]
+    eids = torch.from_numpy(eids).to(dev)
+    ops.reset_launches()
+    got = ops.moe_route_bitmap(eids, E)
+    want = ref.moe_route(eids, E)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    from repro_torch.models.moe import routing_bitmap_words
+
+    assert torch.equal(got, routing_bitmap_words(eids, E).T)
+    assert ops.LAUNCHES["moe_route"] == 1
+
+
+def test_build_primitive_wrappers_reject_wrong_types_and_layouts(dev):
+    with pytest.raises(TypeError, match="torch.bool"):
+        ops.bitpack(torch.ones(64, 2, dtype=torch.uint8, device=dev))
+    with pytest.raises(TypeError, match="int32"):
+        ops.moe_route_bitmap(torch.ones(64, 2, dtype=torch.int64,
+                                        device=dev), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gray(torch.ones(64, 2, dtype=torch.int32, device=dev).T)
