@@ -8,34 +8,46 @@ It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
 1. builds the ten CUDA libraries (eleven kernels) from
-   ``src/repro_torch/csrc`` with nvcc for sm_90a and prints the card's
-   name and power limit;
+   ``src/repro_torch/csrc`` with nvcc for sm_90a, prints the card's name
+   and power limit, and prints ptxas's registers, stack frame, spills and
+   shared memory for every instantiation of ``planfuse_kernel``, failing
+   if any has a stack frame or a spill (its operand stack must stay in
+   registers);
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, on the inputs the dbgen mix's largest batch gives it, bit for bit,
    and times both with CUDA events (median, L2 flushed before each run);
+   then times ``ewah_decode`` on the mix's median (one-query) batch and
+   profiles that batch's device program for decode's share of it;
 4. path phase: answers both mixes through ``BitmapIndex.query_many`` and
    ``query_compressed`` on ``TorchBackend()`` and ``TorchBackend(fuse=False)``,
    requires EWAH streams identical to the host ``NumpyBackend`` and row ids
    identical to ``evaluate_mask`` over the raw columns, requires each
    kernel's launch counter to rise on the path that uses it, and prints
    queries/s, host-to-device bytes per batch and the time split;
-5. container phase: holds the ``containerops`` and ``member`` kernels
-   against their plain versions on Roaring containers over 1,000,000 rows
-   (16 chunks, densities 0.002 / 0.05 / 0.3), times them beside
-   ``torch.bitwise_and`` / ``bitwise_or``, and requires
-   ``TorchBackend()._container_fold`` to give the streams of the host
-   ``containers.fold`` (the only way to reach ``member``: compiled plans
-   fold Roaring columns with "or" only);
+5. container phase: holds the ``containerops`` kernel's pairwise form
+   (``container_pairs``, P = 16 chunk pairs) and ``member`` against their
+   plain versions on Roaring containers over 1,000,000 rows (16 chunks,
+   densities 0.002 / 0.05 / 0.3), times them beside ``torch.bitwise_and``
+   / ``bitwise_or``, and requires ``TorchBackend()._container_fold`` to
+   give the streams of the host ``containers.fold``, "and" folds through
+   ``member`` (the only way to reach it: compiled plans fold Roaring
+   columns with "or" only) and the others in one ``containerops`` launch
+   each;
 6. lifecycle phase: ingests the dbgen-like table through an
    ``IndexWriter`` fed a fixed point-query workload (4 sealed segments and
    an open buffer), deletes about 1 % of the rows on the card, compacts
    the first two segments (their two small columns become Roaring), and
    answers the 64-predicate mix through ``SegmentedIndex.query_many`` and
    ``execute_compressed_many``, fused and per stage, against
-   ``evaluate_mask`` over the live rows and ``backend="numpy"``;
+   ``evaluate_mask`` over the live rows and ``backend="numpy"``; then
+   splits the time of the per-segment plans into compile, container fold
+   (``lower_containers_many``: every fold of the mix in one
+   ``containerops`` launch, which it requires) and device program, and
+   holds and times that one launch (``ops.container_fold``, the whole
+   fold) against its plain version, with its bound;
 7. MoE dispatch phase: ``models.moe_dispatch.run`` at 16,384 tokens for
    qwen2-moe-a2.7b (4-of-60) and olmoe-1b-7b (8-of-64) and the example's
    8,192 tokens (8-of-64), packing on the card through ``moe_route_bitmap``;
@@ -255,13 +267,41 @@ def find_fold(node):
     return None
 
 
+def planfuse_resources(build, planfuse):
+    """ptxas's report for every instantiation of planfuse_kernel (depth
+    class D, V words a thread; its shared memory is all static: code, push
+    list and ring); fails unless every stack frame and spill is 0 bytes."""
+    import re
+
+    out = {}
+    for name, res in build.resources("planfuse").items():
+        hit = re.search(r"planfuse_kernelILi(\d+)ELi(\d+)E", name)
+        if not hit:
+            continue
+        D, V = map(int, hit.groups())
+        out[f"D={D} V={V}"] = entry = dict(res)
+        log(f"[kernels] planfuse_kernel D={D} V={V}: "
+            f"{entry.get('registers')} registers, {entry.get('stack_frame')} "
+            f"bytes stack frame, {entry.get('spill_stores')} + "
+            f"{entry.get('spill_loads')} bytes spill stores + loads, "
+            f"{entry.get('smem')} bytes shared memory")
+    check(len(out) == len(planfuse.DEPTH_CLASSES) * 3,
+          f"ptxas reported {len(out)} planfuse instantiations, expected "
+          f"{len(planfuse.DEPTH_CLASSES) * 3}")
+    for key, e in out.items():
+        check(e.get("stack_frame") == 0 and e.get("spill_stores") == 0
+              and e.get("spill_loads") == 0,
+              f"planfuse_kernel {key} has a stack frame or spills: {e}")
+    return out
+
+
 def kernel_phase(torch, T, idx, plans, device, reps):
     """Each kernel against its plain version on the dbgen mix's largest
     batch: its streams, their decoded planes, the plan's tape, and the
     per-stage path's inputs."""
     from repro_torch.core import ewah
     from repro_torch.core.query import lower_plan
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, planfuse, ref
 
     be = T.TorchBackend(device=device)
     root, cap, n_rows, idxs, n_groups = largest_group(be, plans)
@@ -270,15 +310,17 @@ def kernel_phase(torch, T, idx, plans, device, reps):
     B, m, C = batch.shape
     W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
     tape, depth = lower_plan(root)
+    prog = planfuse.split(tape)
     log(f"[kernels] dbgen largest batch: B={B} queries x m={m} leaves, "
         f"capacity {C}, W={W} words, tape {len(tape)} entries, depth {depth} "
-        f"({n_groups} batches in the mix)")
+        f"({len(prog.code)} steps, {prog.depth} register slots; {n_groups} "
+        f"batches in the mix)")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
 
     planes = ops.ewah_decode(batch, lengths, W)
     x = planes.reshape(m, -1)
     n = x.shape[1]
-    r, _ = ref.plan_fuse(x, tape)
+    r, _ = ref.plan_fuse(x, prog)
     words = r.reshape(B, W)
     sent = torch.where(words[:, :1] == 0, -1, 0).to(torch.int32)
     prev = torch.cat([sent, words[:, :-1]], dim=1).reshape(-1)
@@ -298,8 +340,8 @@ def kernel_phase(torch, T, idx, plans, device, reps):
         "ewah_decode": (lambda: (ops.ewah_decode(batch, lengths, W),),
                         lambda: (ref.ewah_decode(batch, lengths, W),),
                         stream_bytes + m * B * W * 4, m * B * W, 1),
-        "planfuse": (lambda: ops.plan_fuse(x, tape),
-                     lambda: ref.plan_fuse(x, tape),
+        "planfuse": (lambda: ops.plan_fuse(x, prog),
+                     lambda: ref.plan_fuse(x, prog),
                      (m + 2) * n * 4 + len(tape) * 8,
                      (len(tape) + 2) * n, reps),
         "recompress": (lambda: ops.recompress_flags(w_flat, prev),
@@ -585,8 +627,8 @@ def container_phase(torch, T, device, reps):
     be = T.TorchBackend(device=device)
     ops.reset_launches()
     t0 = time.perf_counter()
-    fold_out = [be._container_fold([sets[i] for i in ids], fops, n)
-                for ids, fops in folds]
+    fold_out = be._container_fold_many([([sets[i] for i in ids], fops, n)
+                                        for ids, fops in folds])
     sync(torch, device)
     fold_s = time.perf_counter() - t0
     launches = {k: ops.LAUNCHES[k] for k in ("containerops", "member")}
@@ -597,6 +639,10 @@ def container_phase(torch, T, device, reps):
     for k in ("containerops", "member"):
         check(device == "cpu" or launches[k] > 0,
               f"the container fold never launched {k}")
+    n_rounds = sum(len(fops) for _, fops in folds if "and" in fops)
+    check(device == "cpu" or launches["containerops"] <= n_rounds + 1,
+          f"folds without an 'and' step took more than one containerops "
+          f"launch: {launches}")
     log(f"[containers] {len(folds)} folds identical to containers.fold in "
         f"{fold_s:.4f} s; launches {launches}")
     out.update(folds=len(folds), fold_s=fold_s, launches=launches)
@@ -612,7 +658,7 @@ def lifecycle_phase(torch, T, cols, cards, preds, device, scale):
     import numpy as np
 
     from repro_torch.core.query import (compile_plan, get_backend,
-                                        lower_containers, with_live_mask)
+                                        lower_containers_many, with_live_mask)
     from repro_torch.kernels import ops
     from repro_torch.workload import WorkloadStats
 
@@ -724,19 +770,94 @@ def lifecycle_phase(torch, T, cols, cards, preds, device, scale):
              for p in preds for s in segs if s.n_rows]
     t1 = time.perf_counter()
     n_cfold = sum(1 for p in plans if p.containers)
-    plans = [lower_containers(p, be._container_fold) for p in plans]
+    folds = []
+
+    def fold_many(batch):
+        folds.extend(batch)
+        return be._container_fold_many(batch)
+
+    ops.reset_launches()
+    t1 = time.perf_counter()
+    plans = lower_containers_many(plans, fold_many)
     sync(torch, device)
     t2 = time.perf_counter()
+    fold_launches = ops.LAUNCHES["containerops"]
     be.execute_compressed_many(plans)
     sync(torch, device)
     t3 = time.perf_counter()
+    check(device == "cpu" or fold_launches == 1,
+          f"the batched lowering took {fold_launches} containerops "
+          f"launches, not 1")
     result["split"] = {"plans": len(plans), "plans_with_cfold": n_cfold,
-                       "compile_s": t1 - t0, "container_fold_s": t2 - t1,
+                       "folds": len(folds), "compile_s": t1 - t0,
+                       "container_fold_s": t2 - t1,
                        "device_program_s": t3 - t2,
-                       "fold_share": (t2 - t1) / (t3 - t1)}
+                       "fold_share": (t2 - t1) / (t3 - t1),
+                       "containerops_launches_per_call": fold_launches}
     log("[lifecycle] split: " + ", ".join(
         f"{k} {v:.6g}" for k, v in result["split"].items()))
+    result["folds"] = folds
     return result
+
+
+def whole_fold_phase(torch, folds, device, reps):
+    """The lifecycle mix's folds in one ``containerops`` launch, as the
+    batched lowering packs them: held bit for bit against the plain
+    version and the host ``containers.fold``, and timed on the card.
+    Bound: the packed buffer (tables and compact payloads) read once and
+    the planes written once."""
+    import numpy as np
+
+    from repro_torch.core import containers as C
+    from repro_torch.kernels import containers as KC
+    from repro_torch.kernels import ops, ref
+
+    check(folds and all("and" not in f[1] for f in folds),
+          "the lifecycle mix folds Roaring columns with 'or' only")
+    packed = KC.pack_folds(folds)
+    buf = torch.from_numpy(packed.buf).to(device)
+    classes = {C.CONTAINER_CLASSES[c]: 0 for c in range(3)}
+    for sets, _, _ in folds:
+        for cs in sets:
+            for c in cs.classes:
+                classes[C.CONTAINER_CLASSES[c]] += 1
+    got = ops.container_fold(buf, packed)
+    want = ref.container_fold(buf, packed)
+    sync(torch, device)
+    mism = int((got != want).sum())
+    err = max_err(torch, (got,), (want,))
+    check(mism == 0 and err == 0,
+          "containerops (whole fold) disagrees with its plain version")
+    host = got.cpu().numpy().view(np.uint32)
+    for (sets, fops, n), (off, W) in zip(folds, packed.planes):
+        acc = sets[0]
+        for op, nxt in zip(fops, sets[1:]):
+            acc = C.merge(acc, nxt, op)
+        check(np.array_equal(host[off: off + W], C.to_words(acc)),
+              "a whole-fold plane differs from the folded set's words")
+    nbytes = packed.buf.nbytes + packed.n_out * 4
+    bound_ms, bound_by = bound(nbytes, packed.n_chunks * C.CHUNK_WORDS)
+    entry = {"max_abs_err": err, "mismatches": mism, "bound_ms": bound_ms,
+             "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+             "folds": len(folds), "chunks": packed.n_chunks,
+             "steps": packed.n_steps, "out_words": packed.n_out,
+             "containers": classes}
+    if device != "cpu":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+        entry["ms"] = event_ms(torch, lambda: ops.container_fold(buf, packed),
+                               reps, flush)
+        entry["plain_ms"] = event_ms(
+            torch, lambda: ref.container_fold(buf, packed), reps, flush,
+            rounds=3)
+    log(f"[containers] whole fold: {len(folds)} lifecycle folds, "
+        f"{packed.n_chunks} chunks, {packed.n_steps} steps, containers "
+        f"{classes}, {packed.buf.nbytes} B packed + {packed.n_out * 4} B "
+        f"planes; mismatches {mism}, max_abs_err {err} (tolerance 0: bit "
+        f"identity), {entry.get('ms', float('nan')):.5f} ms (bound "
+        f"{bound_ms:.5f} ms, {bound_by}; "
+        f"{bound_ms / max(entry.get('ms', float('inf')), 1e-9):.1%} of it), "
+        f"plain {entry.get('plain_ms', float('nan')):.5f} ms")
+    return entry
 
 
 def held(torch, name, kern, plain):
@@ -1002,22 +1123,19 @@ def build_primitives_phase(torch, data, device, reps):
     return out
 
 
-def profile_kernels(torch, T, plans, device):
-    """Device activity of one fused compressed batch of the mix, from
-    torch.profiler: time by kernel or copy, by category (the port's
-    kernels, copies, PyTorch's own kernels), and the device's idle share
-    of the wall time (1 - union of activity intervals / wall).  None where
-    the profiler records no device activity."""
+def device_profile(torch, fn):
+    """Device activity of one ``fn()`` call from torch.profiler: time by
+    kernel or copy, by category (the port's kernels, copies, PyTorch's own
+    kernels), and the device's idle share of the wall time (1 - union of
+    activity intervals / wall).  None where the profiler records no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    be = T.TorchBackend(device=device)
-    be.execute_compressed_many(plans)
-    be.result_cache.clear()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        be.execute_compressed_many(plans)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -1051,6 +1169,57 @@ def profile_kernels(torch, T, plans, device):
             "by_category_ms": by_cat, "by_kernel": rows}
 
 
+def profile_kernels(torch, T, plans, device):
+    """Device activity of one fused compressed batch of the mix (see
+    :func:`device_profile`)."""
+    be = T.TorchBackend(device=device)
+    be.execute_compressed_many(plans)
+    be.result_cache.clear()
+    return device_profile(torch, lambda: be.execute_compressed_many(plans))
+
+
+def median_batch_decode(torch, T, plans, device, reps):
+    """``ewah_decode`` on the dbgen mix's median batch (batches ranked by
+    their padded stream words; a one-query batch): held against its plain
+    version, timed beside its bound, and its share of that batch's
+    profiled device program (decode, evaluate, re-encode)."""
+    from repro_torch.core import ewah
+    from repro_torch.kernels import ops, ref
+
+    be = T.TorchBackend(device=device)
+    groups = sorted(be._group(plans).items(),
+                    key=lambda kv: len(kv[1]) * len(plans[kv[1][0]].streams)
+                    * kv[0][1])
+    (root, cap, n_rows), idxs = groups[len(groups) // 2]
+    batch_np, lengths_np = be._pad_group(plans, idxs, cap)
+    batch, lengths = be._to_device(batch_np, lengths_np)
+    B, m, C = batch.shape
+    W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+    stream_bytes = int(lengths_np.sum()) * 4 + lengths_np.nbytes
+    kern = lambda: ops.ewah_decode(batch, lengths, W)  # noqa: E731
+    err, mism = held(torch, "ewah_decode", kern,
+                     lambda: ref.ewah_decode(batch, lengths, W))
+    bound_ms, bound_by = bound(stream_bytes + m * B * W * 4, m * B * W)
+    entry = {"max_abs_err": err, "mismatches": mism,
+             "ms": event_ms(torch, kern, reps, flush), "bound_ms": bound_ms,
+             "bound_by": bound_by, "shape": [B, m, C]}
+    be._run(root, batch, lengths, W, compressed=True)
+    prof = device_profile(torch, lambda: be._run(root, batch, lengths, W,
+                                                 compressed=True))
+    check(prof is not None, "torch.profiler recorded no device time")
+    decode = sum(ms for name, ms, _ in prof["by_kernel"]
+                 if "ewah_decode_kernel" in name)
+    entry.update(profile=prof, decode_profiled_ms=decode,
+                 decode_share=decode / max(prof["device_busy_ms"], 1e-9))
+    log(f"[kernels] ewah_decode on the median batch (B={B}, m={m}, C={C}, "
+        f"W={W}): {entry['ms']:.5f} ms, "
+        f"{entry['bound_ms'] / max(entry['ms'], 1e-9):.1%} of bound; profiled "
+        f"{decode:.5f} ms of {prof['device_busy_ms']:.5f} ms device busy "
+        f"({entry['decode_share']:.1%}) in that batch's device program")
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -1077,6 +1246,9 @@ def run(device="cuda", scale=1.0, reps=20):
             for line in build.build_log(name).splitlines():
                 if "registers" in line or "stack frame" in line:
                     log(f"[build] {name}: {line.strip()}")
+        from repro_torch.kernels import planfuse
+
+        report["planfuse_resources"] = planfuse_resources(build, planfuse)
 
     data = {}
     for name, n_rows, seed in TABLES:
@@ -1093,6 +1265,8 @@ def run(device="cuda", scale=1.0, reps=20):
     if device != "cpu":
         report["kernels"] = kernel_phase(torch, T, data["dbgen"][1],
                                          data["dbgen"][3], device, reps)
+        report["decode_median_batch"] = median_batch_decode(
+            torch, T, data["dbgen"][3], device, reps)
     totals = dict.fromkeys(ops.LAUNCHES, 0)
     report["path"] = {}
     for name, (cols, idx, preds, plans, plan_s) in data.items():
@@ -1110,6 +1284,8 @@ def run(device="cuda", scale=1.0, reps=20):
     for mode in ("fused", "per_stage"):
         for k, v in life[mode]["launches"].items():
             totals[k] += v
+    report["containers"]["whole_fold"] = whole_fold_phase(
+        torch, life.pop("folds"), device, reps)
     # member is reached only by direct container folds (see container_phase)
     totals["member"] = report["containers"]["launches"]["member"]
     report["moe_dispatch"] = moe = moe_dispatch_phase(torch, device, reps)
@@ -1157,7 +1333,10 @@ def main():
     report["card"] = card
     report["total_s"] = time.perf_counter() - t_start
     kernels = []
+    # containerops: the whole fold, the form the main path launches (its
+    # pairwise form is in chip_smoke.json under containers.kernels)
     timed = {**report["kernels"], **report["containers"]["kernels"],
+             "containerops": report["containers"]["whole_fold"],
              **report["moe_dispatch"]["kernels"],
              **report["build_primitives"]["kernels"]}
     for name, (source, replaces) in KERNELS.items():

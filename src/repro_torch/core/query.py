@@ -673,43 +673,92 @@ def lower_containers(plan: Plan, fold, cache=None) -> Plan:
     content digests of the container sets, scoped like any other entry.
     No-op for plans without containers.
     """
-    if not plan.containers:
-        return plan
+    return lower_containers_many(
+        [plan], lambda folds: [fold(*f) for f in folds], cache)[0]
+
+
+def lower_containers_many(plans, fold_many, cache=None) -> list:
+    """:func:`lower_containers` over a list of plans, with every fold of
+    the list evaluated in ONE call: ``fold_many([(csets, ops, n_rows),
+    ...]) -> [np.uint32 stream, ...]`` (the torch backend folds them all
+    in one ``containerops`` launch).
+
+    Folds dedupe by the cache key ``(n_rows, "cfold", ops, digests)``: a
+    fold that several nodes share is evaluated once.  The cache sees what
+    the per-plan lowering would show it: each distinct uncached key misses
+    once and is put with the scope of the first plan that needs it, and
+    every later node of the same key is a hit.  Leaves are substituted
+    and renumbered exactly as :func:`lower_containers` does.  Returns
+    ``plans`` (rewritten in place).
+    """
     from .containers import digest as _container_digest
 
-    digests: dict = {}
-
-    def cdig(i):
-        if i not in digests:
-            digests[i] = _container_digest(plan.containers[i])
-        return digests[i]
-
-    def rec(nd):
+    def walk(nd, visit):
         kind = nd[0]
         if kind == "leaf":
             return nd
         if kind == "cfold":
+            return visit(nd)
+        if kind == "not":
+            return ("not", walk(nd[1], visit))
+        if kind == "fold":
+            return ("fold", nd[1], tuple(walk(c, visit) for c in nd[2]))
+        return (kind, tuple(walk(c, visit) for c in nd[1]))
+
+    keys: list = []            # one per cfold node, in traversal order
+    found: dict = {}           # key -> stream
+    todo: dict = {}            # key -> (fold arguments, scope)
+    for plan in plans:
+        if not plan.containers:
+            continue
+        digests: dict = {}
+
+        def cdig(i, plan=plan, digests=digests):
+            if i not in digests:
+                digests[i] = _container_digest(plan.containers[i])
+            return digests[i]
+
+        def visit(nd, plan=plan, cdig=cdig):
             _, fops, cids, _est = nd
-            key = (plan.n_rows, "cfold", fops,
-                   tuple(cdig(i) for i in cids))
-            stream = cache.get(key) if cache is not None else None
-            if stream is None:
-                stream = fold([plan.containers[i] for i in cids], fops,
-                              plan.n_rows)
-                if cache is not None:
-                    cache.put(key, stream, plan.scope)
+            key = (plan.n_rows, "cfold", fops, tuple(cdig(i) for i in cids))
+            keys.append(key)
+            if key not in found and key not in todo:
+                hit = cache.get(key) if cache is not None else None
+                if hit is not None:
+                    found[key] = hit
+                else:
+                    todo[key] = (([plan.containers[i] for i in cids], fops,
+                                  plan.n_rows), plan.scope)
+            return nd
+
+        walk(plan.root, visit)
+    if todo:
+        streams = fold_many([args for args, _ in todo.values()])
+        for (key, (_, scope)), stream in zip(todo.items(), streams):
+            found[key] = stream
+            if cache is not None:
+                cache.put(key, stream, scope)
+    order = iter(keys)
+    first = set(todo) | set(found)
+    for plan in plans:
+        if not plan.containers:
+            continue
+
+        def leaf(nd, plan=plan):
+            key = next(order)
+            if key in first:
+                first.discard(key)      # its lookup was made above
+                stream = found[key]
+            else:                       # the per-plan lowering's later hit
+                stream = cache.get(key) if cache is not None else None
+                stream = found[key] if stream is None else stream
             plan.streams.append(stream)
             return ("leaf", len(plan.streams) - 1)
-        if kind == "not":
-            return ("not", rec(nd[1]))
-        if kind == "fold":
-            return ("fold", nd[1], tuple(rec(c) for c in nd[2]))
-        return (kind, tuple(rec(c) for c in nd[1]))
 
-    plan.root = rec(plan.root)
-    plan.containers = None
-    _renumber_leaves(plan)
-    return plan
+        plan.root = walk(plan.root, leaf)
+        plan.containers = None
+        _renumber_leaves(plan)
+    return plans
 
 
 class _WorkloadCounters:
@@ -1164,9 +1213,10 @@ class TorchBackend:
     ``recompress`` kernel at the root.  Compressed results re-encode on the
     device (``ewah_torch.compress_from_runs``) up to ``MAX_DIRTY`` words a
     row and on the host above it, exactly as the reference does.  Roaring
-    columns' ``("cfold", ...)`` nodes fold first, one round at a time,
-    through the ``containerops`` and ``member`` kernels
-    (:meth:`_container_fold`).
+    columns' ``("cfold", ...)`` nodes of all the call's plans fold first
+    (:func:`lower_containers_many`): the folds without an "and" step in one
+    ``containerops`` launch, the others one round at a time through the
+    ``containerops`` and ``member`` kernels (:meth:`_container_fold_many`).
 
     ``device=None`` is the CUDA device and raises where there is none;
     ``device="cpu"`` runs every kernel's plain PyTorch version instead.
@@ -1182,8 +1232,8 @@ class TorchBackend:
         return self.execute_many([plan])[0]
 
     def execute_many(self, plans):
-        plans = [lower_containers(p, self._container_fold,
-                                  self.result_cache) for p in plans]
+        plans = lower_containers_many(plans, self._container_fold_many,
+                                      self.result_cache)
         out: list = [None] * len(plans)
         for (root, cap, n_rows), idxs in self._group(plans).items():
             batch, lengths = self._pad_group(plans, idxs, cap)
@@ -1203,8 +1253,8 @@ class TorchBackend:
         group exactly like ``execute_many``, but the device program ends
         with the re-encode, so results come back as EWAH streams and
         whole-plan results land in ``result_cache``."""
-        plans = [lower_containers(p, self._container_fold,
-                                  self.result_cache) for p in plans]
+        plans = lower_containers_many(plans, self._container_fold_many,
+                                      self.result_cache)
         out: list = [None] * len(plans)
         keys: list = [None] * len(plans)
         todo = []
@@ -1270,7 +1320,95 @@ class TorchBackend:
         return self._tensor(batch), self._tensor(lengths)
 
     def _container_fold(self, csets, fops, n_rows):
-        """Batched device evaluation of a ``("cfold", ...)`` node.
+        """Device evaluation of one ``("cfold", ...)`` node (see
+        :meth:`_container_fold_many`)."""
+        return self._container_fold_many([(csets, fops, n_rows)])[0]
+
+    def _container_fold_many(self, folds):
+        """Device evaluation of ``("cfold", ...)`` nodes: ``[(csets, ops,
+        n_rows), ...]`` -> their canonical EWAH streams, bit-identical to
+        the numpy streaming path (``containers.fold``).
+
+        Two routes.  Every fold without an ``"and"`` step (all that
+        compiled plans emit: Roaring columns fold with "or") goes into ONE
+        ``containerops`` launch (:meth:`_fold_one_launch`).  A fold with an
+        ``"and"`` step keeps the per-round route (:meth:`_container_fold_rounds`),
+        whose array-with-bitmap pairs go to the ``member`` kernel.
+        Unknown ops raise.
+        """
+        from . import containers as C
+
+        out: list = [None] * len(folds)
+        one = []
+        for i, (csets, fops, n_rows) in enumerate(folds):
+            for op in fops:
+                if op not in C._MERGE_OPS:
+                    raise ValueError(f"unknown container merge op {op!r}")
+            if not csets:
+                out[i] = C.fold(csets, fops, n_rows)
+            elif "and" in fops[: len(csets) - 1]:
+                out[i] = self._container_fold_rounds(csets, fops, n_rows)
+            else:
+                one.append(i)
+        if one:
+            streams = self._fold_one_launch([folds[i] for i in one])
+            for i, stream in zip(one, streams):
+                out[i] = stream
+        return out
+
+    def _fold_one_launch(self, folds):
+        """Folds without an "and" step in one ``containerops`` launch: the
+        sets go up once in compact form (``kernels.containers.pack_folds``:
+        arrays and runs expand on the card), the kernel writes each fold's
+        dense plane, and each plane re-encodes on the device with
+        ``ewah_torch.compress`` up to ``MAX_DIRTY`` words (on the host
+        with ``ewah.compress`` above it, as ``execute_compressed_many``
+        does).  Streams and lengths come back in one copy.  ``to_stream``
+        depends only on the set bits, so the streams equal
+        ``containers.fold``'s."""
+        import torch
+
+        from . import ewah_torch
+        from ..kernels import containers as kc
+        from ..kernels import ops as kops
+
+        order = sorted(range(len(folds)), key=lambda i: folds[i][2])
+        packed = kc.pack_folds([folds[i] for i in order])
+        planes = kops.container_fold(self._tensor(packed.buf), packed)
+        parts, spans = [], []       # spans: (W, F, device-encoded) a group
+        f = 0
+        while f < len(order):
+            off, W = packed.planes[f]
+            F = sum(1 for g in packed.planes[f:] if g[1] == W)
+            group = planes[off: off + F * W].reshape(F, W)
+            if W <= ewah.MAX_DIRTY:
+                streams, lens = ewah_torch.compress(group, W + 1)
+                parts += [streams.reshape(-1), lens.to(torch.int32)]
+            else:
+                parts.append(group.reshape(-1))
+            spans.append((W, F, W <= ewah.MAX_DIRTY))
+            f += F
+        host = torch.cat(parts).cpu().numpy().view(np.uint32)
+        out: list = [None] * len(folds)
+        at = f = 0
+        for W, F, encoded in spans:
+            if encoded:
+                streams = host[at: at + F * (W + 1)].reshape(F, W + 1)
+                lens = host[at + F * (W + 1): at + F * (W + 2)]
+                enc = [streams[j, : lens[j]].copy() for j in range(F)]
+                at += F * (W + 2)
+            else:
+                words = host[at: at + F * W].reshape(F, W)
+                enc = [ewah.compress(words[j]) for j in range(F)]
+                at += F * W
+            for j in range(F):
+                out[order[f + j]] = enc[j]
+            f += F
+        return out
+
+    def _container_fold_rounds(self, csets, fops, n_rows):
+        """One fold, one round at a time (the route of folds with an
+        "and" step).
 
         Each fold round dispatches its same-chunk container pairs by
         class: array-with-bitmap intersections of an ``"and"`` round batch
@@ -1350,8 +1488,9 @@ class TorchBackend:
         return torch.from_numpy(
             np.ascontiguousarray(arr).view(np.int32)).to(self.device)
 
-    def _fused_tape(self, root):
-        """The lowered instruction tape for ``root`` when the planfuse
+    def _fused_program(self, root):
+        """The planfuse program for ``root`` (its tape and the tape's host
+        split, ``kernels.planfuse.Program``, memoised per root) when the
         kernel can run it, else None: plans past the kernel's tape-length
         or stack-depth limit (``kernels.planfuse.fits``) run per stage."""
         if not self.fuse:
@@ -1361,8 +1500,15 @@ class TorchBackend:
         from ..kernels import planfuse
 
         tape, depth = lower_plan(root)
-        self._tape_memo[root] = tape if planfuse.fits(tape, depth) else None
+        self._tape_memo[root] = (planfuse.split(tape)
+                                 if planfuse.fits(tape, depth) else None)
         return self._tape_memo[root]
+
+    def _fused_tape(self, root):
+        """The lowered instruction tape for ``root`` when the planfuse
+        kernel can run it, else None."""
+        prog = self._fused_program(root)
+        return None if prog is None else prog.tape
 
     def _run(self, root, batch, lengths, n_words: int,
              compressed: bool = False):
@@ -1375,13 +1521,13 @@ class TorchBackend:
         from . import ewah_torch
         from ..kernels import ops as kops
 
-        tape = self._fused_tape(root)
+        prog = self._fused_program(root)
         planes = kops.ewah_decode(batch, lengths, n_words)  # (m, B, W)
         m, B = planes.shape[0], planes.shape[1]
 
-        if tape is not None:
+        if prog is not None:
             # fused: the whole op tree + the classification in ONE launch
-            flat, kflat = kops.plan_fuse(planes.reshape(m, -1), tape)
+            flat, kflat = kops.plan_fuse(planes.reshape(m, -1), prog)
             words = flat.reshape(B, n_words)
             if not compressed:
                 return words

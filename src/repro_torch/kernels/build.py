@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,8 +40,7 @@ _LIBS: dict = {}
 def _flags() -> list:
     return [*ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v",
-            f"-DMAX_TAPE_LEN={planfuse.MAX_TAPE_LEN}",
-            f"-DMAX_STACK_DEPTH={planfuse.MAX_STACK_DEPTH}"]
+            f"-DMAX_TAPE_LEN={planfuse.MAX_TAPE_LEN}"]
 
 
 def nvcc() -> str:
@@ -98,6 +98,34 @@ def build_log(name: str) -> str:
     """What nvcc printed when it built ``name`` (ptxas resource use)."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def resources(name: str) -> dict:
+    """Per-kernel resource use from ptxas's report in ``name``'s build log:
+    ``{mangled name: {"registers", "stack_frame", "spill_stores",
+    "spill_loads", "smem"}}`` (bytes; ``smem`` is the static shared
+    memory)."""
+    out: dict = {}
+    current = None
+    for line in build_log(name).splitlines():
+        hit = re.search(r"(?:entry function|Function properties for) "
+                        r"'?([\w$]+)'?", line)
+        if hit:
+            current = out.setdefault(hit.group(1), {})
+            continue
+        if current is None:
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if frame:
+            current.update(zip(("stack_frame", "spill_stores", "spill_loads"),
+                               map(int, frame.groups())))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            current["registers"] = int(regs.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(smem.group(1)) if smem else 0
+    return out
 
 
 def function(name: str, symbol: str, argtypes: list):

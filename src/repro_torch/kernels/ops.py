@@ -139,39 +139,27 @@ def plan_fuse(stacked, tape):
     """Evaluate a lowered plan tape over (m, n) word planes in one launch
     -> (result (n,), kind (n,)).
 
-    ``tape`` is the stack-machine program from ``core.query.lower_plan``;
-    ``kind`` is the EWAH class of each result word (0 clean-0, 1 clean-1,
-    2 dirty).  Raises for a tape the kernel cannot run (see
-    ``planfuse.fits``).
+    ``tape`` is the stack-machine program from ``core.query.lower_plan``,
+    or its host split (``planfuse.Program``, which ``TorchBackend``
+    memoises per plan root); ``kind`` is the EWAH class of each result
+    word (0 clean-0, 1 clean-1, 2 dirty).  Raises for a tape the kernel
+    cannot run (see ``planfuse.split``).
     """
     m, n = stacked.shape
-    tape = tuple((int(o), int(a)) for o, a in tape)
-    depth = max_depth = 0
-    for opcode, arg in tape:
-        if opcode == _planfuse.PUSH:
-            if not 0 <= arg < m:
-                raise ValueError(f"tape pushes plane {arg} of {m}")
-            depth += 1
-            max_depth = max(max_depth, depth)
-        elif opcode == _planfuse.OP:
-            depth -= 1
-        if depth < 1:
-            raise ValueError("tape pops an empty operand stack")
-    if depth != 1:
-        raise ValueError(f"tape leaves {depth} operands on the stack")
-    if not _planfuse.fits(tape, max_depth):
-        raise ValueError(
-            f"tape of length {len(tape)} and depth {max_depth} exceeds the "
-            f"kernel's limits ({_planfuse.MAX_TAPE_LEN}, "
-            f"{_planfuse.MAX_STACK_DEPTH})")
+    prog = tape if isinstance(tape, _planfuse.Program) else \
+        _planfuse.split(tape)
+    bad = [i for i in prog.pushes if i >= m]
+    if bad:
+        raise ValueError(f"tape pushes plane {bad[0]} of {m}")
     if _on_cpu(stacked):
-        return ref.plan_fuse(stacked, tape)
+        return ref.plan_fuse(stacked, prog)
     _check_cuda("plan_fuse", stacked)
-    tape_t = _device_table(tape, torch.int32, stacked.device)
+    code = _device_table(prog.code, torch.int32, stacked.device)
+    pushes = _device_table(prog.pushes, torch.int32, stacked.device)
     r = torch.empty(n, dtype=torch.int32, device=stacked.device)
     kind = torch.empty(n, dtype=torch.int32, device=stacked.device)
     if n:
-        _planfuse.launch(stacked, tape_t, r, kind)
+        _planfuse.launch(stacked, prog, code, pushes, r, kind)
         LAUNCHES["planfuse"] += 1
     return r, kind
 
@@ -228,9 +216,10 @@ def ewah_decode(batch, lengths, n_words: int):
 
 def container_pairs(a, b, op="and"):
     """Batched Roaring-container merge in word space: (P, W) pairs ->
-    (P, W) with ``op`` in {"and", "or", "andnot"}; one launch for a whole
-    fold round's chunk pairs (W = ``containers.CHUNK_WORDS`` in the
-    backend)."""
+    (P, W) with ``op`` in {"and", "or", "andnot"}: the pairwise form of
+    the one-launch fold kernel (two bitmap steps a chunk), used by the
+    per-round route of folds with an "and" step (W =
+    ``containers.CHUNK_WORDS`` in the backend)."""
     if op not in _containers.OPS:
         raise ValueError(f"unknown container merge op {op!r}")
     if a.shape != b.shape:
@@ -241,7 +230,28 @@ def container_pairs(a, b, op="and"):
     _check_cuda("container_pairs", a, b)
     out = torch.empty_like(a)
     if a.numel():
-        _containers.launch_pairs(a, b, op, out)
+        _containers.launch_pairs(a.reshape(-1, a.shape[-1]),
+                                 b.reshape(-1, a.shape[-1]), op, out)
+        LAUNCHES["containerops"] += 1
+    return out
+
+
+def container_fold(buf, packed):
+    """Whole container folds in one launch: ``packed`` from
+    ``containers.pack_folds``, ``buf`` its int32 buffer as a tensor ->
+    (``packed.n_out``,) int32 dense planes, fold f's W words at
+    ``packed.planes[f]``."""
+    _check_dtype("container_fold", buf)
+    if tuple(buf.shape) != packed.buf.shape:
+        raise ValueError(f"container_fold: buffer of shape "
+                         f"{tuple(buf.shape)} for a packing of "
+                         f"{packed.buf.shape}")
+    if _on_cpu(buf):
+        return ref.container_fold(buf, packed)
+    _check_cuda("container_fold", buf)
+    out = torch.zeros(packed.n_out, dtype=torch.int32, device=buf.device)
+    if packed.n_chunks:
+        _containers.launch_fold(buf, packed, out)
         LAUNCHES["containerops"] += 1
     return out
 

@@ -10,10 +10,11 @@ from __future__ import annotations
 import torch
 
 from ..core import ewah_torch
-from .planfuse import NOT, OP_AND, OP_OR, PUSH
+from . import planfuse
 
 _FNS = {"and": torch.bitwise_and, "or": torch.bitwise_or,
         "xor": torch.bitwise_xor}
+_OP_NAMES = ("and", "or", "xor")   # tape op ids 0, 1, 2
 
 
 def wordops(a, b, op="and"):
@@ -29,19 +30,24 @@ def slice_fold(stacked, ops):
 
 
 def plan_fuse(stacked, tape):
-    stack = []
-    for opcode, arg in tape:
-        if opcode == PUSH:
-            stack.append(stacked[arg])
-        elif opcode == NOT:
-            stack.append(torch.bitwise_not(stack.pop()))
+    """The kernel's interpretation of a tape: its host split
+    (``planfuse.split``; a ``Program`` is taken as it is) run step by step
+    on a slot-indexed operand stack."""
+    prog = tape if isinstance(tape, planfuse.Program) else \
+        planfuse.split(tape)
+    st = [None] * max(prog.depth, 1)
+    planes = iter(prog.pushes)
+    for ins in prog.code:
+        kind, op, slot = ins & 3, (ins >> 2) & 3, ins >> 4
+        if kind == planfuse.LOAD:
+            st[slot] = stacked[next(planes)]
+        elif kind == planfuse.CNOT:
+            st[slot] = torch.bitwise_not(st[slot])
         else:
-            b = stack.pop()
-            a = stack.pop()
-            fn = (torch.bitwise_and if arg == OP_AND else
-                  torch.bitwise_or if arg == OP_OR else torch.bitwise_xor)
-            stack.append(fn(a, b))
-    r = stack.pop()
+            b = (stacked[next(planes)] if kind == planfuse.LOADOP
+                 else st[slot + 1])
+            st[slot] = _FNS[_OP_NAMES[op]](st[slot], b)
+    r = st[0]
     return r, ewah_torch.classify(r)
 
 
@@ -56,6 +62,70 @@ def container_pairs(a, b, op="and"):
     if op == "or":
         return a | b
     return a & ~b
+
+
+def container_fold(buf, packed, chunk_words=2048):
+    """The one-launch container fold on its packed input
+    (``containers.pack_folds``; ``buf`` its int32 buffer as a tensor) ->
+    (``packed.n_out``,) int32 planes.  Every step expands to its dense
+    words (bitmaps gathered, array positions summed in as distinct powers
+    of two, runs as a +1 / -1 prefix sum over bits), then each chunk folds
+    its steps in order, all chunks at once."""
+    dev, i64 = buf.device, torch.int64
+    n_c, n_s = packed.n_chunks, packed.n_steps
+    out = torch.zeros(packed.n_out, dtype=torch.int32, device=dev)
+    if not n_c:
+        return out
+    chunks = buf[: 4 * n_c].reshape(n_c, 4).to(i64)
+    steps = buf[packed.steps_at: packed.steps_at + 4 * n_s].reshape(
+        n_s, 4).to(i64)
+    words = buf[packed.words_at: packed.u16_at]
+    u16 = buf[packed.u16_at:].view(torch.int16).to(i64) & 0xFFFF
+    cls, op = steps[:, 0] & 3, (steps[:, 0] >> 2) & 3
+    off, length = steps[:, 1], steps[:, 2]
+    cols = torch.arange(chunk_words, device=dev, dtype=i64)
+    dense = torch.zeros(n_s, chunk_words, dtype=i64, device=dev)
+    bm = torch.nonzero(cls == 1)[:, 0]
+    dense[bm] = words[off[bm, None] + cols].to(i64) & 0xFFFFFFFF
+    arr = torch.nonzero(cls == 0)[:, 0]
+    if len(arr):
+        owner = torch.repeat_interleave(arr, length[arr])
+        first = torch.cumsum(length[arr], 0) - length[arr]
+        rank = torch.arange(len(owner), device=dev) - torch.repeat_interleave(
+            first, length[arr])
+        pos = u16[off[owner] + rank]
+        flat = dense.reshape(-1)
+        flat.scatter_add_(0, owner * chunk_words + (pos >> 5),
+                          torch.ones_like(pos) << (pos & 31))
+    run = torch.nonzero(cls == 2)[:, 0]
+    if len(run):
+        bits = chunk_words * 32
+        owner = torch.repeat_interleave(torch.arange(len(run), device=dev),
+                                        length[run])
+        first = torch.cumsum(length[run], 0) - length[run]
+        rank = torch.arange(len(owner), device=dev) - torch.repeat_interleave(
+            first, length[run])
+        at = off[run][owner] + 2 * rank
+        edge = torch.zeros(len(run), bits + 1, dtype=i64, device=dev)
+        one = torch.ones_like(at)
+        edge.index_put_((owner, u16[at]), one, accumulate=True)
+        edge.index_put_((owner, u16[at + 1] + 1), -one, accumulate=True)
+        on = (torch.cumsum(edge[:, :bits], 1) > 0).to(i64)
+        dense[run] = (on.reshape(len(run), chunk_words, 32)
+                      << torch.arange(32, device=dev)).sum(2)
+    dense = ewah_torch._to_int32_bits(dense)
+    acc = torch.zeros(n_c, chunk_words, dtype=torch.int32, device=dev)
+    span = chunks[:, 3] - chunks[:, 2]
+    for j in range(int(span.max())):
+        live = j < span
+        s = torch.where(live, chunks[:, 2] + j, 0)
+        w, o = dense[s], op[s][:, None]
+        new = torch.where(o == 0, acc & w, torch.where(o == 1, acc | w,
+                                                       acc & ~w))
+        acc = torch.where(live[:, None], new, acc)
+    keep = cols[None, :] < chunks[:, 1:2]
+    out[(chunks[:, :1] + cols[None, :])[keep]] = acc[keep]
+    return out
 
 
 def container_gallop(positions, words):

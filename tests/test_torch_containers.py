@@ -1,4 +1,5 @@
-"""The port's container kernels and container fold against the reference.
+"""The port's container kernels, container folds and batched container
+lowering against the reference.
 
 * ``repro_torch.kernels.ops.container_pairs`` (and, or, and-not) and
   ``container_gallop`` on the CPU, where they take their plain versions,
@@ -11,6 +12,16 @@
   streaming fold ``containers.fold`` on the four seeded trials of
   tests/test_containers.py, plus "and" folds that take the
   array-with-bitmap path;
+* the one-launch fold (``kernels.containers.pack_folds`` and
+  ``ops.container_fold``, here their plain versions) against
+  ``containers.fold``, ``JaxBackend._container_fold`` and the folded set's
+  dense words: "or" / "and-not" folds of 1-12 sets mixing array, bitmap
+  and run containers, keys held by one set only, empty sets, row counts
+  off the 65,536-row chunk; folds with an "and" step keep the per-round
+  route;
+* ``lower_containers_many`` against the reference's per-plan
+  ``lower_containers``: equal roots, streams and cache hits, each distinct
+  fold folded once;
 * an unknown merge op raises in both packages.
 
 Inputs are made with numpy from fixed seeds; every comparison is
@@ -22,12 +33,16 @@ import numpy as np
 import pytest
 import torch
 
+import repro.core as R
+import repro_torch.core as T
 from repro.core import containers as RC
 from repro.core import ewah
 from repro.core.query import get_backend
 from repro.kernels import ops as rops
 from repro_torch.core import containers as C
+from repro_torch.core import query as TQ
 from repro_torch.core.query import TorchBackend
+from repro_torch.kernels import containers as KC
 from repro_torch.kernels import ops
 
 OPS = ["and", "or", "andnot"]
@@ -226,3 +241,242 @@ def test_cpu_wrappers_count_no_launches():
     ops.container_gallop(t32(pos), t32(words))
     ops.container_pairs(t32(words), t32(words), "or")
     assert ops.LAUNCHES["member"] == 0 and ops.LAUNCHES["containerops"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the one-launch fold (kernels.containers.pack_folds + ops.container_fold)
+# ---------------------------------------------------------------------------
+
+
+def styled_positions(n_rows, styles, seed):
+    """Positions over ``n_rows`` rows, chunk by chunk in the given styles:
+    "empty", "array" (about 100 random rows), "bitmap" (density 0.3),
+    "run" (three long intervals), "full"; the last chunk may be partial."""
+    r = np.random.default_rng(seed)
+    out = []
+    for key, style in enumerate(styles):
+        lo = key * C.CHUNK_ROWS
+        width = min(C.CHUNK_ROWS, n_rows - lo)
+        if width <= 0 or style == "empty":
+            continue
+        if style == "array":
+            local = np.unique(r.integers(0, width, size=100))
+        elif style == "bitmap":
+            local = np.flatnonzero(r.random(width) < 0.3)
+        elif style == "run":
+            cuts = np.sort(r.choice(width, size=6, replace=False))
+            local = np.concatenate([np.arange(a, b + 1)
+                                    for a, b in cuts.reshape(3, 2)])
+        else:
+            local = np.arange(width)
+        out.append(local + lo)
+    return np.concatenate(out) if out else np.empty(0, np.int64)
+
+
+STYLES = ("empty", "array", "bitmap", "run", "full")
+
+
+def fold_case(k, ops_kind, n_rows, seed):
+    """k sets over n_rows rows, each chunk of each set in a random style
+    (so every class appears, and many keys live in one set only), with an
+    "or" / "andnot" op sequence."""
+    r = np.random.default_rng(seed)
+    n_chunks = -(-n_rows // C.CHUNK_ROWS)
+    pos = [styled_positions(n_rows, r.choice(STYLES, size=n_chunks),
+                            int(r.integers(0, 2**31))) for _ in range(k)]
+    if ops_kind == "or":
+        fops = ("or",) * (k - 1)
+    elif ops_kind == "andnot":
+        fops = ("andnot",) * (k - 1)
+    else:
+        fops = tuple(str(o) for o in r.choice(["or", "andnot"], size=k - 1))
+    return pos, fops
+
+
+ONE_LAUNCH_CASES = [(k, kind, n) for k in (1, 2, 5, 12)
+                    for kind in ("or", "andnot", "mixed")
+                    for n in (3 * C.CHUNK_ROWS + 901, 4 * C.CHUNK_ROWS)]
+
+
+@pytest.mark.parametrize("k,kind,n", ONE_LAUNCH_CASES)
+def test_one_launch_fold_matches_reference(k, kind, n):
+    """The one-launch route's plain version (CPU tensors) against the
+    reference's numpy fold and JaxBackend in interpret mode, and its dense
+    planes against the folded set's words."""
+    pos, fops = fold_case(k, kind, n, seed=k * 1000 + n % 997)
+    t_sets = [C.from_positions(p, n) for p in pos]
+    r_sets = [RC.from_positions(p, n) for p in pos]
+    be = TorchBackend(device="cpu")
+    calls = []
+    real = be._container_fold_rounds
+    be._container_fold_rounds = lambda *a: calls.append(a) or real(*a)
+    got = be._container_fold_many([(t_sets, fops, n)])[0]
+    assert not calls                  # no "and" step: the one-launch route
+    np.testing.assert_array_equal(got, RC.fold(r_sets, fops, n))
+    np.testing.assert_array_equal(
+        got, get_backend("jax", interpret=True)._container_fold(
+            r_sets, fops, n))
+    packed = KC.pack_folds([(t_sets, fops, n)])
+    planes = ops.container_fold(torch.from_numpy(packed.buf), packed)
+    acc = t_sets[0]
+    for op, nxt in zip(fops, t_sets[1:]):
+        acc = C.merge(acc, nxt, op)
+    np.testing.assert_array_equal(u32(planes), C.to_words(acc))
+
+
+def test_one_launch_fold_covers_every_class_and_edge():
+    """The cases above hold array, bitmap and run containers, keys held by
+    one set only, and a fold with an empty set."""
+    seen, lone = set(), 0
+    for k, kind, n in ONE_LAUNCH_CASES:
+        pos, _ = fold_case(k, kind, n, seed=k * 1000 + n % 997)
+        sets = [C.from_positions(p, n) for p in pos]
+        seen |= {int(c) for s in sets for c in s.classes}
+        keys = [set(s.keys.tolist()) for s in sets]
+        lone += sum(1 for i, ks in enumerate(keys) for key in ks
+                    if not any(key in o for j, o in enumerate(keys) if j != i))
+    assert seen == {C.ARRAY, C.BITMAP, C.RUN} and lone > 0
+    n = 2 * C.CHUNK_ROWS + 5
+    empty = C.from_positions(np.empty(0, np.int64), n)
+    full = C.from_positions(np.arange(n), n)
+    be = TorchBackend(device="cpu")
+    for sets, fops in (([empty], ()), ([empty, full], ("or",)),
+                       ([full, empty], ("andnot",)), ([empty, empty], ("or",)),
+                       ([full, full], ("andnot",))):
+        got = be._container_fold_many([(sets, fops, n)])[0]
+        np.testing.assert_array_equal(got, C.fold(sets, fops, n))
+
+
+def test_one_launch_fold_batches_many_folds():
+    """Several folds of different row counts in one call: one packed
+    buffer, each plane at its own offset, every stream as containers.fold
+    gives it; a set shared by folds is uploaded once."""
+    folds = []
+    for i, n in enumerate((C.CHUNK_ROWS + 33, 3 * C.CHUNK_ROWS,
+                           C.CHUNK_ROWS + 33, 2 * C.CHUNK_ROWS + 64)):
+        pos, fops = fold_case(3 + i, "mixed", n, seed=50 + i)
+        folds.append(([C.from_positions(p, n) for p in pos], fops, n))
+    folds.append((folds[0][0], ("or", "or", "or")[: len(folds[0][1])],
+                  folds[0][2]))
+    be = TorchBackend(device="cpu")
+    got = be._container_fold_many(folds)
+    for (sets, fops, n), g in zip(folds, got):
+        np.testing.assert_array_equal(g, C.fold(sets, fops, n))
+    packed = KC.pack_folds(folds)
+    assert packed.n_out == sum(-(-n // 32) for _, _, n in folds)
+    assert [w for _, w in packed.planes] == [-(-n // 32) for _, _, n in folds]
+    n_bitmap = (packed.u16_at - packed.words_at) // C.CHUNK_WORDS
+    distinct = {(id(s), i) for sets, _, _ in folds for s in sets
+                for i, c in enumerate(s.classes) if c == C.BITMAP}
+    assert n_bitmap == len(distinct)
+
+
+def test_and_folds_keep_the_per_round_route(monkeypatch):
+    """A fold with an "and" step takes the per-round route, whose other
+    pairs go through container_pairs; folds without one take the single
+    launch beside it."""
+    n = 4 * C.CHUNK_ROWS
+    pos = [random_positions(n, d, 300 + i)
+           for i, d in enumerate((0.002, 0.3, 0.05))]
+    t_sets = [C.from_positions(p, n) for p in pos]
+    pairs = []
+    real = ops.container_pairs
+    monkeypatch.setattr(ops, "container_pairs",
+                        lambda a, b, op: pairs.append(op) or real(a, b, op))
+    folded = []
+    real_fold = ops.container_fold
+    monkeypatch.setattr(ops, "container_fold",
+                        lambda b, p: folded.append(p.n_chunks)
+                        or real_fold(b, p))
+    folds = [(t_sets, ("and", "or"), n), (t_sets, ("or", "andnot"), n),
+             (t_sets[1:], ("or",), n)]
+    got = TorchBackend(device="cpu")._container_fold_many(folds)
+    for (sets, fops, _), g in zip(folds, got):
+        np.testing.assert_array_equal(g, C.fold(sets, fops, n))
+    assert pairs == ["or"] and len(folded) == 1
+
+
+# ---------------------------------------------------------------------------
+# the batched lowering (core.query.lower_containers_many)
+# ---------------------------------------------------------------------------
+
+
+def roaring_plans(P):
+    """Plans over a Roaring index (four chunks, a partial last one) from
+    package P's planner: In and Range on both columns, each predicate
+    twice, so folds repeat within one batch and across plans."""
+    from repro.core import query as RQ
+    from repro_torch.convert import index_from_reference
+
+    r = np.random.default_rng(17)
+    n = 3 * C.CHUNK_ROWS + 4099
+    cols = [r.integers(0, 7, size=n), r.integers(0, 11, size=n)]
+    ref_idx = RQ_index(cols)
+    idx = index_from_reference(ref_idx) if P is T else ref_idx
+    preds = [P.In(0, [1, 3, 5]), P.Range(1, 2, 8),
+             P.And(P.In(0, [0, 2]), P.Not(P.Range(1, 0, 4))),
+             P.Or(P.Eq(0, 6), P.In(1, [9, 10])), P.In(0, [1, 3, 5]),
+             P.Range(1, 2, 8)]
+    compile_ = TQ.compile_plan if P is T else RQ.compile_plan
+    return [compile_(idx, p) for p in preds]
+
+
+def RQ_index(cols):
+    import repro.core as R
+
+    return R.BitmapIndex.build(cols, R.IndexSpec(k=1, row_order="lex",
+                                                 encoding="roaring"))
+
+
+def test_batched_lowering_matches_per_plan_reference():
+    """lower_containers_many with the torch backend's fold against the
+    reference's per-plan lower_containers with its numpy fold: equal roots,
+    streams, cache hits and misses; every distinct fold folded once, in
+    one call."""
+    from repro.core import query as RQ
+
+    t_plans, r_plans = roaring_plans(T), roaring_plans(R)
+    assert all(p.containers for p in t_plans)
+    t_cache, r_cache = TQ.ResultCache(), RQ.ResultCache()
+    be = TorchBackend(device="cpu")
+    calls = []
+    real = be._container_fold_many
+    be._container_fold_many = lambda folds: calls.append(len(folds)) or \
+        real(folds)
+    TQ.lower_containers_many(t_plans, be._container_fold_many, t_cache)
+    ref_fold = RQ.NumpyBackend()._container_fold
+    for p in r_plans:
+        RQ.lower_containers(p, ref_fold, r_cache)
+    distinct = {k for k in r_cache._data}
+    assert calls == [len(distinct)]
+    for tp, rp in zip(t_plans, r_plans):
+        assert tp.root == rp.root and tp.containers is None
+        assert len(tp.streams) == len(rp.streams)
+        for a, b in zip(tp.streams, rp.streams):
+            np.testing.assert_array_equal(a, b)
+    assert (t_cache.hits, t_cache.misses) == (r_cache.hits, r_cache.misses)
+    assert t_cache.hits > 0
+    # a second lowering of fresh plans hits the cache for every fold
+    again = roaring_plans(T)
+    TQ.lower_containers_many(again, be._container_fold_many, t_cache)
+    assert calls == [len(distinct)]
+    for tp, ap in zip(t_plans, again):
+        assert tp.root == ap.root
+
+
+def test_batched_lowering_entry_points_answer_like_numpy():
+    """execute_many / execute_compressed_many lower all their plans' folds
+    in one call and answer like NumpyBackend."""
+    plans = roaring_plans(T)
+    want = T.query.NumpyBackend().execute_compressed_many(roaring_plans(T))
+    be = TorchBackend(device="cpu")
+    calls = []
+    real = be._container_fold_many
+    be._container_fold_many = lambda folds: calls.append(len(folds)) or \
+        real(folds)
+    got = be.execute_compressed_many(plans)
+    rows = be.execute_many(roaring_plans(T))
+    for g, w, (r, _) in zip(got, want, rows):
+        np.testing.assert_array_equal(g.data, w.data)
+        np.testing.assert_array_equal(r, w.to_rows())
+    assert len(calls) == 1       # the second call found every fold cached

@@ -296,3 +296,148 @@ def test_build_primitive_wrappers_reject_wrong_types_and_layouts(dev):
                                         device=dev), 4)
     with pytest.raises(ValueError, match="contiguous"):
         ops.gray(torch.ones(64, 2, dtype=torch.int32, device=dev).T)
+
+
+def random_tape(depth, m, seed):
+    """A tape whose operand stack peaks at ``depth``, pushing random planes
+    of m: a right-nested chain of and / or / xor with NOTs, then a left
+    fold of a few more planes onto it."""
+    r = np.random.default_rng(seed)
+    tape = []
+    for _ in range(depth):
+        tape.append((0, int(r.integers(0, m))))
+        if r.random() < 0.3:
+            tape.append((1, 0))
+    for _ in range(depth - 1):
+        tape.append((2, int(r.integers(0, 3))))
+    for _ in range(3):
+        tape.append((0, int(r.integers(0, m))))
+        tape.append((2, int(r.integers(0, 3))))
+    return tuple(tape)
+
+
+# n: a tile of 256 x V words never divides it; 37 and 31,250 take V = 1,
+# 200,003 V = 2 and 300,001 V = 4 on 132 SMs
+@pytest.mark.parametrize("m", [1, 29, 64])
+@pytest.mark.parametrize("n", [37, 31_250, 200_003, 300_001])
+def test_planfuse_kernel_every_depth_class(dev, m, n):
+    from repro_torch.kernels import planfuse
+
+    base = mixed_words((m * n + 1,), seed=m + n).to(dev)
+    planes = {"aligned": base[: m * n].view(m, n),
+              "offset": base[1:].view(m, n)}   # 4 bytes off 16-byte ends
+    ops.reset_launches()
+    calls = 0
+    for depth in range(1, 17):
+        tape = random_tape(depth, m, seed=depth * 100 + m)
+        prog = planfuse.split(tape)
+        assert prog.tape_depth == max(depth, 2)   # the tail pushes one more
+        for x in planes.values():
+            got = ops.plan_fuse(x, prog)
+            want = ref.plan_fuse(x, prog)
+            torch.cuda.synchronize()
+            calls += 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (depth, tape)
+    assert ops.LAUNCHES["planfuse"] == calls
+
+
+def styled_set(n_rows, styles, seed):
+    """A container set chunk by chunk in the given styles (array, bitmap,
+    run, empty, full); the last chunk may be partial."""
+    from repro_torch.core import containers as C
+
+    r = np.random.default_rng(seed)
+    out = []
+    for key, style in enumerate(styles):
+        lo = key * C.CHUNK_ROWS
+        width = min(C.CHUNK_ROWS, n_rows - lo)
+        if width <= 0 or style == "empty":
+            continue
+        if style == "array":
+            local = np.unique(r.integers(0, width, size=300))
+        elif style == "bitmap":
+            local = np.flatnonzero(r.random(width) < 0.3)
+        elif style == "run":
+            cuts = np.sort(r.choice(width, size=8, replace=False))
+            local = np.concatenate([np.arange(a, b + 1)
+                                    for a, b in cuts.reshape(4, 2)])
+        else:
+            local = np.arange(width)
+        out.append(local + lo)
+    pos = np.concatenate(out) if out else np.empty(0, np.int64)
+    return C.from_positions(pos, n_rows)
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 12])
+def test_fold_kernel_matches_plain_version(dev, k):
+    from repro_torch.core import containers as C
+    from repro_torch.kernels import containers as KC
+
+    r = np.random.default_rng(k)
+    styles = ("array", "bitmap", "run", "empty", "full")
+    folds = []
+    for n in (5 * C.CHUNK_ROWS + 777, 2 * C.CHUNK_ROWS):
+        sets = [styled_set(n, r.choice(styles, size=-(-n // C.CHUNK_ROWS)),
+                           int(r.integers(0, 2**31))) for _ in range(k)]
+        for fops in (("or",) * (k - 1), ("andnot",) * (k - 1),
+                     tuple(str(o) for o in r.choice(["or", "andnot", "and"],
+                                                    size=k - 1))):
+            folds.append((sets, fops, n))
+    packed = KC.pack_folds(folds)
+    buf = torch.from_numpy(packed.buf).to(dev)
+    ops.reset_launches()
+    got = ops.container_fold(buf, packed)
+    want = ref.container_fold(buf, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.LAUNCHES["containerops"] == 1
+    host = got.cpu().numpy().view(np.uint32)
+    for (sets, fops, n), (off, W) in zip(folds, packed.planes):
+        acc = sets[0]
+        for op, nxt in zip(fops, sets[1:]):
+            acc = C.merge(acc, nxt, op)
+        np.testing.assert_array_equal(host[off: off + W], C.to_words(acc))
+    streams = TorchBackend()._container_fold_many(folds)
+    for (sets, fops, n), s in zip(folds, streams):
+        np.testing.assert_array_equal(s, C.fold(sets, fops, n))
+
+
+@pytest.mark.parametrize("P", [1, 16, 300])
+def test_pairwise_fold_kernel_matches_plain_version(dev, P):
+    from repro_torch.core import containers as C
+
+    a = mixed_words((P, C.CHUNK_WORDS), seed=P + 7).to(dev)
+    b = mixed_words((P, C.CHUNK_WORDS), seed=P + 8).to(dev)
+    ops.reset_launches()
+    for op in ("and", "or", "andnot"):
+        got = ops.container_pairs(a, b, op)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.container_pairs(a, b, op))
+    off = ops.container_pairs(a[:, 1:].contiguous(), b[:, 1:].contiguous(),
+                              "or")                       # 2047 words
+    assert torch.equal(off, ref.container_pairs(a[:, 1:], b[:, 1:], "or"))
+    assert ops.LAUNCHES["containerops"] == 4
+
+
+def test_one_containerops_launch_per_batched_lowering(dev):
+    from repro_torch.core.query import lower_containers_many
+
+    r = np.random.default_rng(8)
+    n = 3 * 65_536 + 4099
+    cols = [r.integers(0, 7, size=n), r.integers(0, 11, size=n)]
+    idx = T.BitmapIndex.build(cols, T.IndexSpec(k=1, row_order="lex",
+                                                encoding="roaring"))
+    preds = [T.In(0, [1, 3, 5]), T.Range(1, 2, 8), T.In(0, [1, 3, 5]),
+             T.Or(T.Eq(0, 6), T.In(1, [9, 10])),
+             T.And(T.In(0, [0, 2]), T.Not(T.Range(1, 0, 4)))]
+    plans = [compile_plan(idx, p) for p in preds]
+    assert all(p.containers for p in plans)
+    want = NumpyBackend().execute_compressed_many(
+        [compile_plan(idx, p) for p in preds])
+    be = TorchBackend()
+    ops.reset_launches()
+    lower_containers_many(plans, be._container_fold_many)
+    assert ops.LAUNCHES["containerops"] == 1 and ops.LAUNCHES["member"] == 0
+    for s, w in zip(be.execute_compressed_many(plans), want):
+        np.testing.assert_array_equal(s.data, w.data)
