@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the ten CUDA libraries (eleven kernels) from
+1. builds the ten CUDA libraries (twelve kernels) from
    ``src/repro_torch/csrc`` with nvcc for sm_90a, prints the card's name
    and power limit, and prints ptxas's registers, stack frame, spills and
    shared memory for every instantiation of ``planfuse_kernel``, failing
@@ -19,8 +19,13 @@ reference package, and:
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, on the inputs the dbgen mix's largest batch gives it, bit for bit,
    and times both with CUDA events (median, L2 flushed before each run);
-   then times ``ewah_decode`` on the mix's median (one-query) batch and
-   profiles that batch's device program for decode's share of it;
+   then, on the mix's median (one-query) batch, holds ``ewah_decode`` and
+   each of its two phases (``ewah_markers``, ``ewah_expand``) against
+   their plain versions, prints its markers a stream (max and mean),
+   times it beside its bound, and profiles that batch's device program
+   for decode's share of it and its device launches a decode call; and
+   holds and times ``ewah_decode`` on a synthetic worst-case batch (55
+   streams in which every word is a marker) with the same bound;
 4. path phase: answers both mixes through ``BitmapIndex.query_many`` and
    ``query_compressed`` on ``TorchBackend()`` and ``TorchBackend(fuse=False)``,
    requires EWAH streams identical to the host ``NumpyBackend`` and row ids
@@ -377,6 +382,9 @@ def kernel_phase(torch, T, idx, plans, device, reps):
             f"{bound_ms / max(ms, 1e-9):.1%} of it), plain {plain_ms:.4f} ms")
         check(mism == 0 and err == 0,
               f"{name} kernel disagrees with its plain version")
+    out["ewah_decode"]["split_ms"] = split = decode_split(
+        torch, batch, lengths, W, reps, flush)
+    log(f"[kernels] ewah_decode on the largest batch, by kernel: {split}")
     return out
 
 
@@ -1178,11 +1186,53 @@ def profile_kernels(torch, T, plans, device):
     return device_profile(torch, lambda: be.execute_compressed_many(plans))
 
 
+def decode_split(torch, batch, lengths, W, reps, flush):
+    """CUDA-event time of each phase of the decode alone: the markers
+    kernel, and the expansion kernel from the table it wrote."""
+    from repro_torch.kernels import ops
+
+    table = ops.ewah_markers(batch, lengths, W)
+    return {"markers_ms": event_ms(
+                torch, lambda: ops.ewah_markers(batch, lengths, W), reps,
+                flush),
+            "expand_ms": event_ms(
+                torch, lambda: ops.ewah_expand(batch, lengths, W, *table),
+                reps, flush)}
+
+
+def decode_bound(lengths_np, m, B, W):
+    """Bound of one decode call: the streams' words and lengths read once,
+    m * B * W words written once; one operation an output word."""
+    return bound(int(lengths_np.sum()) * 4 + lengths_np.nbytes + m * B * W * 4,
+                 m * B * W)
+
+
+def decode_phases_held(torch, batch, lengths, W):
+    """Hold each phase of the decode against its plain version: the marker
+    table (up to each row's count), then the expansion of the plain table.
+    Returns the markers a stream (the table's counts)."""
+    from repro_torch.kernels import ewah_decode as launcher
+    from repro_torch.kernels import ops, ref
+
+    tab, tab_n, first = ops.ewah_markers(batch, lengths, W)
+    p_tab, p_n, p_first = ref.ewah_markers(batch, lengths, W, launcher.TILE)
+    sync(torch, batch.device.type)
+    bad = int((tab_n != p_n).sum()) + int((first != p_first).sum())
+    for r, k in enumerate(p_n.tolist()):
+        bad += int((tab[r, :k] != p_tab[r, :k]).sum())
+    check(bad == 0, "the ewah_decode markers kernel disagrees with "
+                    "ref.ewah_markers")
+    held(torch, "ewah_decode (expansion)",
+         lambda: ops.ewah_expand(batch, lengths, W, p_tab, p_n, p_first),
+         lambda: ref.ewah_expand(batch, lengths, W, p_tab, p_n, p_first))
+    return p_n
+
+
 def median_batch_decode(torch, T, plans, device, reps):
     """``ewah_decode`` on the dbgen mix's median batch (batches ranked by
     their padded stream words; a one-query batch): held against its plain
-    version, timed beside its bound, and its share of that batch's
-    profiled device program (decode, evaluate, re-encode)."""
+    version, phase by phase too, timed beside its bound, and its share of
+    that batch's profiled device program (decode, evaluate, re-encode)."""
     from repro_torch.core import ewah
     from repro_torch.kernels import ops, ref
 
@@ -1196,27 +1246,81 @@ def median_batch_decode(torch, T, plans, device, reps):
     B, m, C = batch.shape
     W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
-    stream_bytes = int(lengths_np.sum()) * 4 + lengths_np.nbytes
     kern = lambda: ops.ewah_decode(batch, lengths, W)  # noqa: E731
     err, mism = held(torch, "ewah_decode", kern,
                      lambda: ref.ewah_decode(batch, lengths, W))
-    bound_ms, bound_by = bound(stream_bytes + m * B * W * 4, m * B * W)
+    markers = decode_phases_held(torch, batch, lengths, W).double()
+    bound_ms, bound_by = decode_bound(lengths_np, m, B, W)
     entry = {"max_abs_err": err, "mismatches": mism,
              "ms": event_ms(torch, kern, reps, flush), "bound_ms": bound_ms,
-             "bound_by": bound_by, "shape": [B, m, C]}
+             "bound_by": bound_by, "shape": [B, m, C],
+             "markers_max": int(markers.max()),
+             "markers_mean": float(markers.mean())}
     be._run(root, batch, lengths, W, compressed=True)
     prof = device_profile(torch, lambda: be._run(root, batch, lengths, W,
                                                  compressed=True))
     check(prof is not None, "torch.profiler recorded no device time")
-    decode = sum(ms for name, ms, _ in prof["by_kernel"]
-                 if "ewah_decode_kernel" in name)
-    entry.update(profile=prof, decode_profiled_ms=decode,
-                 decode_share=decode / max(prof["device_busy_ms"], 1e-9))
+    decode = [(ms, n) for name, ms, n in prof["by_kernel"]
+              if "ewah_decode_kernel" in name]
+    entry.update(profile=prof, decode_profiled_ms=sum(d[0] for d in decode),
+                 decode_launches_per_call=sum(d[1] for d in decode),
+                 split_ms=decode_split(torch, batch, lengths, W, reps, flush))
+    entry["decode_share"] = (entry["decode_profiled_ms"]
+                             / max(prof["device_busy_ms"], 1e-9))
+    check(entry["decode_launches_per_call"] == 2,
+          f"the profile shows {entry['decode_launches_per_call']} ewah_decode "
+          f"launches for one decode call, not 2")
     log(f"[kernels] ewah_decode on the median batch (B={B}, m={m}, C={C}, "
-        f"W={W}): {entry['ms']:.5f} ms, "
+        f"W={W}; markers a stream max {entry['markers_max']}, mean "
+        f"{entry['markers_mean']:.1f}): {entry['ms']:.5f} ms, "
         f"{entry['bound_ms'] / max(entry['ms'], 1e-9):.1%} of bound; profiled "
-        f"{decode:.5f} ms of {prof['device_busy_ms']:.5f} ms device busy "
-        f"({entry['decode_share']:.1%}) in that batch's device program")
+        f"{entry['decode_profiled_ms']:.5f} ms in "
+        f"{entry['decode_launches_per_call']} device launches a decode call, "
+        f"of {prof['device_busy_ms']:.5f} ms device busy "
+        f"({entry['decode_share']:.1%}) in that batch's device program; by "
+        f"kernel {entry['split_ms']}")
+    return entry
+
+
+def worst_case_decode(torch, device, reps, m=55, n=31_250, C=32_768):
+    """``ewah_decode`` on a synthetic worst-case one-query batch: m streams
+    of n one-word clean runs of alternating fill, so every word is a marker
+    (n markers a stream, the most n words can hold), at the median batch's
+    capacity; held against its plain version and timed beside the same
+    bound as the median batch."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, ref
+
+    t = (np.arange(n)[None, :] + np.arange(m)[:, None]) % 2
+    streams = ((t.astype(np.uint32) << 31) | np.uint32(1 << 15))
+    batch_np = np.zeros((1, m, C), dtype=np.uint32)
+    batch_np[0, :, :n] = streams
+    lengths_np = np.full((1, m), n, dtype=np.int32)
+    batch = torch.from_numpy(batch_np.view(np.int32)).to(device)
+    lengths = torch.from_numpy(lengths_np).to(device)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+    kern = lambda: ops.ewah_decode(batch, lengths, n)  # noqa: E731
+    err, mism = held(torch, "ewah_decode", kern,
+                     lambda: ref.ewah_decode(batch, lengths, n))
+    words = kern()[:, 0].cpu().numpy().view(np.uint32)
+    check(np.array_equal(words, np.where(t == 1, np.uint32(0xFFFFFFFF),
+                                         np.uint32(0))),
+          "ewah_decode of the worst-case batch is not its words")
+    markers = decode_phases_held(torch, batch, lengths, n)
+    check(int(markers.min()) == n, "the worst-case streams lost markers")
+    bound_ms, bound_by = decode_bound(lengths_np, m, 1, n)
+    entry = {"max_abs_err": err, "mismatches": mism,
+             "ms": event_ms(torch, kern, reps, flush), "bound_ms": bound_ms,
+             "bound_by": bound_by, "shape": [1, m, C], "markers_max": n,
+             "markers_mean": float(n),
+             "split_ms": decode_split(torch, batch, lengths, n, reps, flush)}
+    log(f"[kernels] ewah_decode on the worst-case batch (B=1, m={m}, C={C}, "
+        f"W={n}; {n} markers a stream): mismatches {mism}, max_abs_err "
+        f"{err} (tolerance 0: bit identity), {entry['ms']:.5f} ms (bound "
+        f"{bound_ms:.5f} ms, {bound_by}; "
+        f"{bound_ms / max(entry['ms'], 1e-9):.1%} of it); by kernel "
+        f"{entry['split_ms']}")
     return entry
 
 
@@ -1267,6 +1371,7 @@ def run(device="cuda", scale=1.0, reps=20):
                                          data["dbgen"][3], device, reps)
         report["decode_median_batch"] = median_batch_decode(
             torch, T, data["dbgen"][3], device, reps)
+        report["decode_worst_case"] = worst_case_decode(torch, device, reps)
     totals = dict.fromkeys(ops.LAUNCHES, 0)
     report["path"] = {}
     for name, (cols, idx, preds, plans, plan_s) in data.items():

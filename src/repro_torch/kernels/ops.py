@@ -197,11 +197,9 @@ def recompress_batch(words, capacity):
 
 def ewah_decode(batch, lengths, n_words: int):
     """(B, m, C) int32 EWAH streams with (B, m) lengths -> (m, B, n_words)
-    int32 word planes (plane j of query b at ``[j, b]``)."""
-    B, m, C = batch.shape
-    if tuple(lengths.shape) != (B, m):
-        raise ValueError(f"lengths of shape {tuple(lengths.shape)} for a "
-                         f"batch of shape {tuple(batch.shape)}")
+    int32 word planes (plane j of query b at ``[j, b]``): the marker
+    kernel, then the expansion kernel, one count a call."""
+    B, m, C = _check_decode_args(batch, lengths, n_words)
     if _on_cpu(batch, lengths):
         return ref.ewah_decode(batch, lengths, n_words)
     _check_cuda("ewah_decode", batch, lengths)
@@ -212,6 +210,54 @@ def ewah_decode(batch, lengths, n_words: int):
     elif out.numel():
         out.zero_()
     return out
+
+
+def ewah_markers(batch, lengths, n_words: int):
+    """The decode's first phase alone: -> (tab (R, C, 2), tab_n (R,),
+    tile_first (R, n_tiles)) int32 (see ``kernels/ewah_decode.py``; table
+    entries past a row's count are unspecified)."""
+    B, m, C = _check_decode_args(batch, lengths, n_words)
+    if _on_cpu(batch, lengths):
+        return ref.ewah_markers(batch, lengths, n_words, _decode.TILE)
+    _check_cuda("ewah_decode", batch, lengths)
+    if not (B and m and C and n_words):
+        raise ValueError("ewah_markers: empty batch")
+    tab, tab_n, tile_first = _decode.table(batch, n_words)
+    _decode.launch_markers(batch, lengths, n_words, tab, tab_n, tile_first)
+    LAUNCHES["ewah_decode"] += 1
+    return tab, tab_n, tile_first
+
+
+def ewah_expand(batch, lengths, n_words: int, tab, tab_n, tile_first):
+    """The decode's second phase alone: a marker table -> (m, B, n_words)
+    int32 planes."""
+    B, m, C = _check_decode_args(batch, lengths, n_words)
+    if _on_cpu(batch, lengths, tab, tab_n, tile_first):
+        return ref.ewah_expand(batch, lengths, n_words, tab, tab_n,
+                               tile_first)
+    _check_cuda("ewah_decode", batch, lengths, tab, tab_n, tile_first)
+    R, T = B * m, _decode.n_tiles(n_words)
+    if (tuple(tab.shape) != (R, C, 2) or tuple(tab_n.shape) != (R,)
+            or tuple(tile_first.shape) != (R, T)):
+        raise ValueError("ewah_expand: a table of shapes "
+                         f"{(R, C, 2)}, {(R,)}, {(R, T)} expected")
+    if not (B and m and C and n_words):
+        raise ValueError("ewah_expand: empty batch")
+    out = torch.empty(m, B, n_words, dtype=torch.int32, device=batch.device)
+    _decode.launch_expand(batch, lengths, n_words, tab, tab_n, tile_first,
+                          out)
+    LAUNCHES["ewah_decode"] += 1
+    return out
+
+
+def _check_decode_args(batch, lengths, n_words):
+    B, m, C = batch.shape
+    if tuple(lengths.shape) != (B, m):
+        raise ValueError(f"lengths of shape {tuple(lengths.shape)} for a "
+                         f"batch of shape {tuple(batch.shape)}")
+    if not 0 <= n_words < 2**30:
+        raise ValueError(f"n_words {n_words} outside [0, 2**30)")
+    return B, m, C
 
 
 def container_pairs(a, b, op="and"):

@@ -245,3 +245,144 @@ def ewah_decode(batch, lengths, n_words: int):
     out = torch.where(ones, torch.full_like(out[:, :n_words], -1),
                       out[:, :n_words])
     return out.reshape(m, B, n_words)
+
+
+def ewah_markers(batch, lengths, n_words: int, tile: int):
+    """Phase 1 of the decode kernel: (B, m, C) streams with (B, m) lengths
+    -> the marker table (tab (R, C, 2) int32 of (position, output offset),
+    tab_n (R,), tile_first (R, ceil(n_words / tile))), rows r = b * m + j.
+
+    The kernel's algorithm, all streams at once, each stream one range
+    (the kernel splits it over a cluster of blocks and walks the blocks'
+    exits first).  Position i read as a
+    marker has the successor next(i) = min(i + 1 + nd_i, length).  With
+    windows of 32^l positions at level l, E_l(i) is the first marker of
+    i's chain at or past the end of i's level-l window: pointer jumping
+    clamped at the window's end (5 rounds, since a window holds at most 32
+    windows of the level below).  A walk of E_n from position 0 (n levels,
+    32^(n+1) >= C: at most 32 steps) gives the entry (first marker) of each
+    level-n window; a walk of E_(l-1) from each level-l window's entry
+    gives its subwindows' entries; a walk of next from each 32-word
+    window's entry gives its markers.  An exclusive cumsum of the markers'
+    clean + dirty words, clamped at n_words, gives their offsets; the table
+    keeps the markers whose offset is below n_words (entries past tab_n
+    are 0).  ``tile_first[r, t]`` is the last of them with offset
+    <= t * tile, or -1 for an empty stream.
+    """
+    B, m, C = batch.shape
+    R = B * m
+    dev = batch.device
+    i64 = torch.int64
+    nl = 1
+    while 32 ** (nl + 1) < C:
+        nl += 1
+    P = -(-C // 32 ** nl) * 32 ** nl          # whole level-n windows
+    s = torch.zeros(R, P, dtype=i64, device=dev)
+    s[:, :C] = batch.reshape(R, C).to(i64) & 0xFFFFFFFF
+    L = lengths.reshape(R).to(i64).clamp(0, C)[:, None]
+    rows = torch.arange(R, dtype=i64, device=dev)[:, None]
+    idx = torch.arange(P + 1, dtype=i64, device=dev)[None, :]
+    nd = torch.cat([s & 0x7FFF, torch.zeros(R, 1, dtype=i64, device=dev)], 1)
+    nxt = torch.where(idx < L, torch.minimum(idx + 1 + nd, L), L)
+
+    def jump(J, level):
+        """Pointer jumping clamped at each position's level window end."""
+        end = torch.minimum(((idx >> 5 * level) + 1) << 5 * level, L)
+        for _ in range(5):
+            J = torch.where(J < end, J.gather(1, J), J)
+        return J
+
+    E = [None, jump(nxt, 1)]
+    for level in range(2, nl + 1):
+        E.append(jump(E[-1], level))
+
+    def walk(x, step, end, record):
+        """Follow ``step`` from every start x (-1: none) while x < end,
+        calling record(active, x) at each point."""
+        while True:
+            act = (x >= 0) & (x < end)
+            if not bool(act.any()):
+                return
+            record(act, x)
+            x = torch.where(act, step.gather(1, x.clamp(min=0)), x)
+
+    def entries(level):
+        return torch.full((R, P >> 5 * level), -1, dtype=i64, device=dev)
+
+    def setter(table, shift):
+        def record(act, x):
+            r = rows.expand_as(x)[act]
+            table[r, x[act] >> shift] = x[act]
+        return record
+
+    ent = entries(nl)
+    walk(torch.zeros(R, 1, dtype=i64, device=dev), E[nl], L,
+         setter(ent, 5 * nl))
+    for level in range(nl, 1, -1):
+        sub = entries(level - 1)
+        w = torch.arange(ent.shape[1], dtype=i64, device=dev)[None, :]
+        walk(ent, E[level - 1], torch.minimum((w + 1) << 5 * level, L),
+             setter(sub, 5 * (level - 1)))
+        ent = sub
+    flags = torch.zeros(R, P, dtype=torch.bool, device=dev)
+
+    def flag(act, x):
+        flags[rows.expand_as(x)[act], x[act]] = True
+
+    w = torch.arange(ent.shape[1], dtype=i64, device=dev)[None, :]
+    walk(ent, nxt, torch.minimum((w + 1) << 5, L), flag)
+
+    mk = flags[:, :C]
+    w = s[:, :C]
+    nd_eff = torch.minimum(w & 0x7FFF, (L - idx[:, :C] - 1).clamp(min=0))
+    c = torch.where(mk, ((w >> 15) & 0xFFFF) + nd_eff, 0)
+    off = (torch.cumsum(c, 1) - c).clamp(max=n_words)
+    keep = mk & (off < n_words)
+    tab_n = keep.sum(1)
+    rank = torch.cumsum(keep.to(i64), 1) - 1
+    r, pos = keep.nonzero(as_tuple=True)
+    tab = torch.zeros(R, C, 2, dtype=torch.int32, device=dev)
+    tab[r, rank[r, pos], 0] = pos.to(torch.int32)
+    tab[r, rank[r, pos], 1] = off[r, pos].to(torch.int32)
+    k = torch.arange(C, dtype=i64, device=dev)[None, :]
+    offs = torch.where(k < tab_n[:, None], tab[..., 1].to(i64), n_words + 1)
+    starts = torch.arange(0, n_words, tile, dtype=i64, device=dev)
+    tile_first = torch.searchsorted(
+        offs.contiguous(), starts[None, :].expand(R, -1).contiguous(),
+        right=True) - 1
+    return tab, tab_n.to(torch.int32), tile_first.to(torch.int32)
+
+
+def ewah_expand(batch, lengths, n_words: int, tab, tab_n, tile_first):
+    """Phase 2 of the decode kernel: the marker table of
+    :func:`ewah_markers` -> (m, B, n_words) words.  Every output word takes
+    the last marker with offset <= its index (``tile_first`` only narrows
+    that search in the kernel), then is the marker's clean fill, one of
+    its dirty words, or 0 past the words the stream covers."""
+    B, m, C = batch.shape
+    R = B * m
+    dev = batch.device
+    i64 = torch.int64
+    s = batch.reshape(R, C)
+    L = lengths.reshape(R).to(i64).clamp(0, C)[:, None]
+    k = torch.arange(C, dtype=i64, device=dev)[None, :]
+    offs = torch.where(k < tab_n.to(i64)[:, None], tab[..., 1].to(i64),
+                       n_words + 1).contiguous()
+    o = torch.arange(n_words, dtype=i64, device=dev)[None, :].expand(R, -1)
+    rec = torch.searchsorted(offs, o.contiguous(), right=True) - 1
+    found = rec >= 0
+    rec = rec.clamp(min=0)
+    pos = tab[..., 0].to(i64).gather(1, rec)
+    off = offs.gather(1, rec)
+    w = s.gather(1, pos.clamp(0, C - 1)).to(i64) & 0xFFFFFFFF
+    nc = (w >> 15) & 0xFFFF
+    nd_eff = torch.minimum(w & 0x7FFF, (L - pos - 1).clamp(min=0))
+    d = o - off
+    dd = d - nc
+    dirty = s.gather(1, (pos + 1 + dd).clamp(0, C - 1))
+    fill = torch.where((w >> 31) == 1, -1, 0).to(torch.int32)
+    val = torch.where(d < nc, fill,
+                      torch.where((dd >= 0) & (dd < nd_eff), dirty,
+                                  torch.zeros_like(dirty)))
+    val = torch.where(found, val, torch.zeros_like(val))
+    return val.reshape(B, m, n_words).permute(1, 0, 2).contiguous()

@@ -111,6 +111,140 @@ def test_decode_kernel_matches_plain_version(dev, p_clean):
     np.testing.assert_array_equal(full[:, 1:], words.transpose(1, 0, 2)[:, 1:])
 
 
+def short_run_words(n, seed, dirty=(1, 2), clean=(1, 1)):
+    """n words of alternating clean and dirty runs of a few words each: a
+    stream of many markers (about 12K at n = 31,250 with the defaults)."""
+    r = np.random.default_rng(seed)
+    out = np.empty(n, dtype=np.uint32)
+    i = 0
+    while i < n:
+        k = int(r.integers(*clean, endpoint=True))
+        out[i:i + k] = 0xFFFFFFFF if r.random() < 0.5 else 0
+        i += k
+        k = int(r.integers(*dirty, endpoint=True))
+        out[i:i + k] = r.integers(1, 2**32 - 1, size=min(k, max(n - i, 0)),
+                                  dtype=np.uint32)
+        i += k
+    return out
+
+
+def decode_against_plain(dev, words, C, lengths=None, n_words=None):
+    """Encode (B, m, n) words into a (B, m, C) batch, decode on the card,
+    and hold the result against ref.ewah_decode (and the words, where the
+    whole stream is decoded)."""
+    B, m, n = words.shape
+    batch = np.zeros((B, m, C), dtype=np.uint32)
+    lens = np.zeros((B, m), dtype=np.int32)
+    for b in range(B):
+        for j in range(m):
+            s = ewah.compress(words[b, j])
+            batch[b, j, : len(s)] = s
+            lens[b, j] = len(s)
+    if lengths is not None:
+        lens = np.asarray(lengths, dtype=np.int32).reshape(B, m)
+    batch = torch.from_numpy(batch.view(np.int32)).to(dev)
+    lt = torch.from_numpy(lens).to(dev)
+    for nw in ([n] if n_words is None else n_words):
+        ops.reset_launches()
+        got = ops.ewah_decode(batch, lt, nw)
+        want = ref.ewah_decode(batch, lt, nw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert ops.LAUNCHES["ewah_decode"] == 1
+        if lengths is None and nw == n:
+            np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                          words.transpose(1, 0, 2))
+    return batch, lt
+
+
+@pytest.mark.parametrize("C", [31_251, 32_768, 70_000])  # 70,000: scratch
+def test_decode_kernel_many_markers(dev, C):
+    """One stream of about 12K markers of 1-3-word runs over 31,250 words:
+    pointer jumping in shared memory, or in the wrapper's scratch where C
+    is past what shared memory holds."""
+    n = 31_250
+    words = short_run_words(n, seed=C)[None, None]
+    decode_against_plain(dev, words, C, n_words=[n, n - 999, n + 3000])
+
+
+def test_decode_kernel_one_query_batch_of_55(dev):
+    """B = 1, m = 55 with marker counts from 1 to about 12K, as the dbgen
+    mix's median batch holds: walked and pointer-jumped streams in one
+    launch."""
+    n = 31_250
+    r = np.random.default_rng(55)
+    rows = []
+    for j in range(55):
+        kind = j % 5
+        if kind == 0:
+            w = np.full(n, 0xFFFFFFFF if j % 2 else 0, dtype=np.uint32)
+        elif kind == 1:
+            w = short_run_words(n, seed=j, dirty=(1, 3), clean=(1, 3))
+        elif kind == 2:
+            w = r.integers(1, 2**32 - 1, size=n, dtype=np.uint32)
+        elif kind == 3:
+            w = short_run_words(n, seed=j, dirty=(1, 2000), clean=(1, 4000))
+        else:
+            w = np.zeros(n, dtype=np.uint32)
+            hot = r.choice(n, size=60 * j, replace=False)
+            w[hot] = r.integers(1, 2**32 - 1, size=hot.size, dtype=np.uint32)
+        rows.append(w)
+    words = np.stack(rows)[None]
+    batch, lengths = decode_against_plain(dev, words, 32_768)
+    lengths = lengths.clone()
+    lengths[0, 1::3] //= 3      # lengths that cut dirty runs
+    got = ops.ewah_decode(batch, lengths, n)
+    assert torch.equal(got, ref.ewah_decode(batch, lengths, n))
+
+
+@pytest.mark.parametrize("n_words", [2047, 2048, 4097, 3 * 32767 + 50])
+def test_decode_dirty_runs_cross_tiles(dev, n_words):
+    """Dirty runs of up to MAX_DIRTY words crossing the expansion's
+    2,048-word tiles, and tiles that start inside clean runs, in a batch
+    of several queries."""
+    r = np.random.default_rng(n_words)
+    B, m, n = 3, 4, 3 * 32767 + 40
+    words = r.integers(1, 2**32 - 1, size=(B, m, n), dtype=np.uint32)
+    for b in range(B):
+        for j in range(m):
+            for _ in range(int(r.integers(0, 6))):
+                a = int(r.integers(0, n - 5000))
+                words[b, j, a: a + int(r.integers(1, 5000))] = (
+                    0xFFFFFFFF if r.random() < 0.5 else 0)
+    decode_against_plain(dev, words, n + 8, n_words=[n_words, n])
+
+
+@pytest.mark.parametrize("C", [32_768, 70_000])
+def test_decode_phases_match_plain_versions(dev, C):
+    """The markers kernel against ref.ewah_markers (the table up to each
+    row's count, the counts and the tile starts) and the expansion kernel,
+    fed the plain table, against ref.ewah_expand."""
+    n = 31_250
+    rows = [short_run_words(n, seed=s, dirty=(1, 1 + 40 * s),
+                            clean=(1, 1 + 90 * s)) for s in range(6)]
+    rows.append(np.zeros(n, dtype=np.uint32))
+    words = np.stack(rows).reshape(1, 7, n)
+    batch, lengths = decode_against_plain(dev, words, C)
+    lengths = lengths.clone()
+    lengths[0, 6] = 0            # an empty stream
+    for nw in (n, 5000):
+        from repro_torch.kernels import ewah_decode as launcher
+
+        tab, tab_n, tile_first = ops.ewah_markers(batch, lengths, nw)
+        p_tab, p_n, p_first = ref.ewah_markers(batch, lengths, nw,
+                                               launcher.TILE)
+        torch.cuda.synchronize()
+        assert torch.equal(tab_n, p_n)
+        assert torch.equal(tile_first, p_first)
+        for r_, k in enumerate(p_n.tolist()):
+            assert torch.equal(tab[r_, :k], p_tab[r_, :k])
+        got = ops.ewah_expand(batch, lengths, nw, p_tab, p_n, p_first)
+        want = ref.ewah_expand(batch, lengths, nw, p_tab, p_n, p_first)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, ref.ewah_decode(batch, lengths, nw))
+
+
 def test_wrappers_reject_mixed_devices_and_types(dev):
     a = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="CPU or all"):
