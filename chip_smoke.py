@@ -7,12 +7,11 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the ten CUDA libraries (twelve kernels) from
-   ``src/repro_torch/csrc`` with nvcc for sm_90a, prints the card's name
-   and power limit, and prints ptxas's registers, stack frame, spills and
-   shared memory for every instantiation of ``planfuse_kernel``, failing
-   if any has a stack frame or a spill (its operand stack must stay in
-   registers);
+1. builds the ten CUDA libraries from ``src/repro_torch/csrc`` with nvcc
+   for sm_90a, prints the card's name and power limit, and prints ptxas's
+   registers, stack frame, spills and shared memory for every
+   instantiation of ``planfuse_kernel``, ``moe_route_kernel`` and the
+   histogram kernels, failing if any has a stack frame or a spill;
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
@@ -58,13 +57,16 @@ reference package, and:
    8,192 tokens (8-of-64), packing on the card through ``moe_route_bitmap``;
    requires both ``validate`` checks, words identical to ``ref.moe_route``
    and ``routing_bitmap_words(...).T``, and times ``moe_route`` at
-   1,048,576 tokens of olmoe's routing;
+   1,048,576 tokens of olmoe's (8-of-64) and qwen2-moe's (4-of-60)
+   routing, each call profiled as one kernel launch;
 8. build-primitives phase on the dbgen-like index: ``bitpack`` of the two
    small columns' one-hot in row order against the index's own equality
    bitmaps, ``histogram`` of all four columns and census-like's widest
    against ``column_histogram``, ``gray`` forward and back against
    ``to_gray`` / ``from_gray``; each held bit for bit against its plain
-   version and timed (``histogram`` beside ``torch.bincount``);
+   version; ``histogram`` calls profiled, one kernel launch a call (no
+   memset, no conversion); each primitive timed
+   (``histogram`` beside ``torch.bincount``);
 9. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
 10. prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -72,6 +74,13 @@ reference package, and:
 
 Any mismatch or error exits non-zero before the last line.  The full
 measurements also go to ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --timings
+
+holds and times only ``moe_route`` and ``histogram`` at their timed shapes
+through ``ops`` and prints the card line and their numbers as one JSON
+line; copied into another checkout (the parent commit's), it times that
+checkout's kernels, so that two versions compare on one card.
 """
 
 from __future__ import annotations
@@ -121,7 +130,8 @@ CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
 LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
 MOE_TOKENS = 16_384                  # bench_moe_dispatch.run's own T
 MOE_EXAMPLE = (8192, 64, 8)          # examples/moe_bitmap_dispatch.py
-MOE_TIMED = (256 * 4096, 64, 8)      # 256 sequences x 4096, olmoe's E, k
+# 256 sequences x 4096 tokens: olmoe's (E, k), then qwen2-moe's
+MOE_TIMED = ((256 * 4096, 64, 8), (256 * 4096, 60, 4))
 BITPACK_TIMED_VALUES = 512           # one-hot width of the timed bitpack
 GRAY_TIMED_WORDS = 2**26
 
@@ -272,31 +282,44 @@ def find_fold(node):
     return None
 
 
-def planfuse_resources(build, planfuse):
-    """ptxas's report for every instantiation of planfuse_kernel (depth
-    class D, V words a thread; its shared memory is all static: code, push
-    list and ring); fails unless every stack frame and spill is 0 bytes."""
+# ptxas-checked kernels: library -> (mangled-name pattern, instantiations);
+# every instantiation must have no stack frame and no spill
+PTXAS_CHECKED = {
+    "planfuse": (r"planfuse_kernelILi(\d+)ELi(\d+)E", None),  # D x V classes
+    "moe_route": (r"moe_route_kernelILi(\d+)ELb(\d)E", 6),      # NC x VEC
+    "histmm": (r"hist_(\w+?)_kernelILi(\d)EEv", 4),        # regime x VEC
+}
+
+
+def kernel_resources(build, planfuse):
+    """ptxas's report for every instantiation of the checked kernels:
+    planfuse_kernel (depth class D, V words a thread; its shared memory is
+    all static: code, push list and ring), moe_route_kernel (NC mask words,
+    16-byte reads) and the histogram kernels (regime, template arguments);
+    fails unless every stack frame and spill is 0 bytes."""
     import re
 
     out = {}
-    for name, res in build.resources("planfuse").items():
-        hit = re.search(r"planfuse_kernelILi(\d+)ELi(\d+)E", name)
-        if not hit:
-            continue
-        D, V = map(int, hit.groups())
-        out[f"D={D} V={V}"] = entry = dict(res)
-        log(f"[kernels] planfuse_kernel D={D} V={V}: "
-            f"{entry.get('registers')} registers, {entry.get('stack_frame')} "
-            f"bytes stack frame, {entry.get('spill_stores')} + "
-            f"{entry.get('spill_loads')} bytes spill stores + loads, "
-            f"{entry.get('smem')} bytes shared memory")
-    check(len(out) == len(planfuse.DEPTH_CLASSES) * 3,
-          f"ptxas reported {len(out)} planfuse instantiations, expected "
-          f"{len(planfuse.DEPTH_CLASSES) * 3}")
+    for lib, (pattern, count) in PTXAS_CHECKED.items():
+        if count is None:
+            count = len(planfuse.DEPTH_CLASSES) * 3
+        found = {}
+        for name, res in build.resources(lib).items():
+            hit = re.search(pattern, name)
+            if hit:
+                found[f"{lib} {'/'.join(hit.groups())}"] = entry = dict(res)
+                log(f"[kernels] {name}: {entry.get('registers')} registers, "
+                    f"{entry.get('stack_frame')} bytes stack frame, "
+                    f"{entry.get('spill_stores')} + {entry.get('spill_loads')}"
+                    f" bytes spill stores + loads, {entry.get('smem')} bytes "
+                    f"shared memory")
+        check(len(found) == count, f"ptxas reported {len(found)} {lib} "
+              f"instantiations, expected {count}")
+        out.update(found)
     for key, e in out.items():
         check(e.get("stack_frame") == 0 and e.get("spill_stores") == 0
               and e.get("spill_loads") == 0,
-              f"planfuse_kernel {key} has a stack frame or spills: {e}")
+              f"{key} has a stack frame or spills: {e}")
     return out
 
 
@@ -977,21 +1000,130 @@ def moe_dispatch_phase(torch, device, reps):
     if device == "cpu":
         return out
 
-    T_t, E_t, k_t = MOE_TIMED
-    gen = torch.Generator(device=device).manual_seed(0)
-    pop = torch.arange(1, E_t + 1, device=device, dtype=torch.float32) ** -1.2
-    u = torch.rand(T_t, E_t, generator=gen, device=device).clamp_(1e-12, 1)
-    # Gumbel top-k: k distinct experts per token drawn ~ zipf popularity
-    eids = (pop.log() - (-u.log()).log()).topk(k_t, dim=1).indices.to(
-        torch.int32).contiguous()
-    del u
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
-    W = -(-T_t // 32)
-    out["kernels"] = {"moe_route": timed_entry(
-        torch, "moe_route", lambda: ops.moe_route_bitmap(eids, E_t),
-        lambda: ref.moe_route(eids, E_t), T_t * k_t * 4 + W * E_t * 4,
-        T_t * k_t + W * E_t, reps, flush, shape=[T_t, k_t, E_t])}
+    per_shape = time_moe_route(torch, device, reps)
+    # the kernels line reports olmoe's routing, the first shape
+    first = next(iter(per_shape.values()))
+    out["kernels"] = {"moe_route": {**first, "per_shape": per_shape}}
     return out
+
+
+def time_moe_route(torch, device, reps, profiled=True):
+    """``moe_route`` held and timed at each of ``MOE_TIMED``'s routings,
+    drawn on the card from a seed; ``profiled``: each shape's call also
+    profiled as one kernel launch."""
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+    per_shape = {}
+    for T_t, E_t, k_t in MOE_TIMED:
+        pop = torch.arange(1, E_t + 1, device=device,
+                           dtype=torch.float32) ** -1.2
+        u = torch.rand(T_t, E_t, generator=gen, device=device).clamp_(1e-12, 1)
+        # Gumbel top-k: k distinct experts per token drawn ~ zipf popularity
+        eids = (pop.log() - (-u.log()).log()).topk(k_t, dim=1).indices.to(
+            torch.int32).contiguous()
+        del u
+        W = -(-T_t // 32)
+        per_shape[f"{T_t}x{k_t}of{E_t}"] = entry = timed_entry(
+            torch, "moe_route", lambda: ops.moe_route_bitmap(eids, E_t),
+            lambda: ref.moe_route(eids, E_t), T_t * k_t * 4 + W * E_t * 4,
+            T_t * k_t + W * E_t, reps, flush, shape=[T_t, k_t, E_t])
+        if profiled:
+            entry["profile"] = one_kernel_a_call(
+                torch, f"moe_route {T_t}x{k_t}of{E_t}",
+                lambda: ops.moe_route_bitmap(eids, E_t), "moe_route_kernel")
+        del eids
+    return per_shape
+
+
+def one_kernel_a_call(torch, what, fn, kernel, calls=4, windows=5):
+    """Profile windows of ``calls`` calls of ``fn``.  Fail unless in every
+    window the host made exactly one kernel launch a call and no memset or
+    copy, and every device record is a kernel whose name contains
+    ``kernel``; and unless a window hands over exactly ``calls`` device
+    records.  The profiler has handed over none of a short window's device
+    records in some runs, so a window with fewer is profiled again, up to
+    ``windows`` in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm: first calls may allocate (a zeroed output, a scratch)
+    torch.cuda.synchronize()
+    short = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        host = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cuda")
+                and any(w in e.name for w in ("Launch", "Memset", "Memcpy"))]
+        device = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name != "Activity Buffer Request"]
+        check(len(host) == calls and all("Launch" in n for n in host),
+              f"{what}: one kernel launch a call expected over {calls} "
+              f"calls, the host made {host}")
+        check(len(device) <= calls and all(kernel in n for n in device),
+              f"{what}: device activity other than the kernel: {device}")
+        if len(device) == calls:
+            break
+        short.append(len(device))
+    check(len(device) == calls, f"{what}: no window of {windows} handed over "
+          f"one device record a call (records a window: {short})")
+    log(f"[profile] {what}: one device kernel ({kernel}) a call over {calls} "
+        f"calls, no memset or copy (windows with records dropped before: "
+        f"{short})")
+    return {"host": host, "device": device, "short_windows": short}
+
+
+def histogram_inputs(torch, cols, census, device):
+    """The timed histogram columns as (name, int32 values on the device,
+    V): the dbgen-like table's four and census-like's widest."""
+    import numpy as np
+
+    named = [(f"dbgen col {c}", col) for c, col in enumerate(cols)]
+    wide = max(range(len(census)), key=lambda c: int(census[c].max()))
+    named.append((f"census col {wide}", census[wide]))
+    return [(name, torch.from_numpy(col.astype(np.int32)).to(device),
+             int(col.max()) + 1) for name, col in named]
+
+
+def time_histograms(torch, hist_in, reps, flush):
+    """``histogram`` of each column held and timed beside its plain
+    version and ``torch.bincount``."""
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    for name, x, V in hist_in:
+        out[name] = timed_entry(
+            torch, f"histogram {name} V={V}", lambda: ops.histogram(x, V),
+            lambda: ref.histogram(x, V), x.numel() * 4 + V * 4, x.numel(),
+            reps, flush, library=lambda: torch.bincount(x, minlength=V),
+            shape=[x.numel(), V])
+    return out
+
+
+def timings_only(reps=20):
+    """``python3 chip_smoke.py --timings``: only ``moe_route`` and
+    ``histogram`` at their timed shapes, through ``ops`` (so that the same
+    script times another checkout's kernels, e.g. the parent commit's, on
+    the same card)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.data import tables
+
+    (_, n_db, seed_db), (_, n_ce, seed_ce) = TABLES
+    hist_in = histogram_inputs(
+        torch, tables.make_dbgen_like(n_db, seed=seed_db),
+        tables.make_census_like(n_ce, seed=seed_ce), "cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    return {"moe_route": time_moe_route(torch, "cuda", reps, profiled=False),
+            "histogram": time_histograms(torch, hist_in, reps, flush)}
 
 
 def build_primitives_phase(torch, data, device, reps):
@@ -1023,11 +1155,7 @@ def build_primitives_phase(torch, data, device, reps):
         value_of[enc.codes[:, 0]] = np.arange(enc.card)   # bitmap -> value
         on_card[i] = (torch.from_numpy(col).to(device),
                       torch.from_numpy(value_of).to(device))
-    hist_cols = [(f"dbgen col {c}", col) for c, col in enumerate(cols)]
-    wide = max(range(len(census)), key=lambda c: int(census[c].max()))
-    hist_cols.append((f"census col {wide}", census[wide]))
-    hist_in = [(name, torch.from_numpy(col.astype(np.int32)).to(device),
-                int(col.max()) + 1) for name, col in hist_cols]
+    hist_in = histogram_inputs(torch, cols, census, device)
     big = max(range(len(cols)), key=lambda c: int(cols[c].max()))
     gray_in = torch.from_numpy(cols[big].astype(np.int32)).to(device)
 
@@ -1094,6 +1222,12 @@ def build_primitives_phase(torch, data, device, reps):
     if device == "cpu":
         return out
 
+    # one histogram call is one device kernel: no memset, no conversion
+    out["histogram_profile"] = {
+        name: one_kernel_a_call(torch, f"histogram {name} (V={V})",
+                                lambda: ops.histogram(x, V), "hist_")
+        for name, x, V in hist_in}
+
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
     # the first values of the second-widest column (2526 values)
     mid = sorted(range(len(cols)), key=lambda c: int(cols[c].max()))[-2]
@@ -1106,13 +1240,7 @@ def build_primitives_phase(torch, data, device, reps):
         lambda: ref.bitpack(bits), R * C + (-(-R // 32)) * C * 4,
         R * C, reps, flush, shape=[R, C])}
     del bits
-    per_column = {}
-    for name, x, V in hist_in:
-        per_column[name] = timed_entry(
-            torch, f"histogram {name} V={V}", lambda: ops.histogram(x, V),
-            lambda: ref.histogram(x, V), x.numel() * 4 + V * 4, x.numel(),
-            reps, flush, library=lambda: torch.bincount(x, minlength=V),
-            shape=[x.numel(), V])
+    per_column = time_histograms(torch, hist_in, reps, flush)
     # the kernels line reports the dbgen-like table's largest column
     kernels["histogram"] = {**per_column[f"dbgen col {big}"],
                             "per_column": per_column}
@@ -1166,7 +1294,9 @@ def device_profile(torch, fn):
         entry = by_name.setdefault(e.name, [0.0, 0])
         entry[0] += ms
         entry[1] += 1
-        cat = ("port_kernels" if any(f"{k}_kernel" in e.name for k in KERNELS)
+        cat = ("port_kernels" if any(f"{k}_kernel" in e.name
+                                     for k in (*KERNELS, "hist_shared",
+                                               "hist_global"))
                else "copies" if "Memcpy" in e.name or "Memset" in e.name
                else "torch")
         by_cat[cat] += ms
@@ -1352,7 +1482,7 @@ def run(device="cuda", scale=1.0, reps=20):
                     log(f"[build] {name}: {line.strip()}")
         from repro_torch.kernels import planfuse
 
-        report["planfuse_resources"] = planfuse_resources(build, planfuse)
+        report["kernel_resources"] = kernel_resources(build, planfuse)
 
     data = {}
     for name, n_rows, seed in TABLES:
@@ -1415,6 +1545,10 @@ def run(device="cuda", scale=1.0, reps=20):
 def main():
     import torch
 
+    timings = sys.argv[1:] == ["--timings"]
+    if sys.argv[1:] and not timings:
+        print("usage: chip_smoke.py [--timings]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1431,10 +1565,14 @@ def main():
     log(f"[card] {card}")
     t_start = time.perf_counter()
     try:
-        report = run()
+        report = timings_only() if timings else run()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
+    if timings:
+        print(card)
+        print(json.dumps(report))
+        return 0
     report["card"] = card
     report["total_s"] = time.perf_counter() - t_start
     kernels = []

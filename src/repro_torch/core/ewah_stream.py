@@ -44,7 +44,6 @@ from .ewah import (FULL, MAX_CLEAN, MAX_DIRTY, WORD_BITS, _emit_group,
 __all__ = [
     "Cursor", "Appender", "EwahStream", "EwahValidationError",
     "logical_op", "logical_many", "logical_not", "concat_streams",
-    "and_popcount",
 ]
 
 

@@ -2,7 +2,7 @@
 
 Replaces the TPU kernel ``moe_route_kernel``
 (``src/repro/kernels/moe_route.py``): (T, k) top-k expert ids packed into
-(ceil(T/32), E) k-of-E dispatch words.
+(ceil(T/32), E) k-of-E dispatch words, in one launch.
 """
 
 from __future__ import annotations

@@ -379,9 +379,7 @@ def histogram(vals, n_values: int):
     if _on_cpu(vals):
         return ref.histogram(vals, n_values)
     _check_cuda("histogram", vals)
-    counts = torch.empty(n_values, dtype=torch.int32, device=vals.device)
-    out = torch.empty(n_values, dtype=torch.float32, device=vals.device)
-    _histmm.launch(vals, counts, out)
+    out = _histmm.launch(vals, n_values)
     LAUNCHES["histogram"] += 1
     return out
 

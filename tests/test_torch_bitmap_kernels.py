@@ -226,3 +226,84 @@ def test_cpu_calls_launch_no_kernel():
     assert set(ops.LAUNCHES) >= {"bitpack", "gray", "histogram", "moe_route"}
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
+
+
+# --- histmm.plan: where the counts live, chosen on the host ----------------
+
+from repro_torch.kernels import histmm  # noqa: E402
+
+H100 = dict(sms=132, smem_optin=232_448)
+BLOCK_BINS = (232_448 - histmm.STATIC_SMEM) // 16 * 4  # whole 16-byte groups
+
+
+@pytest.mark.parametrize("n,V,regime,blocks", [
+    (1_000_000, 7, "shared", 123),           # dbgen-like col 0
+    (1_000_000, 11, "shared", 123),          # dbgen-like col 1
+    (1_000_000, 2526, "shared", 123),        # dbgen-like col 2
+    (1_000_000, 28_571, "shared", 70),       # dbgen-like col 3
+    (199_523, 99_761, "global", 65),         # census-like's widest
+])
+def test_histogram_plan_of_the_timed_columns(n, V, regime, blocks):
+    how = histmm.plan(n, V, **H100)
+    assert (how.regime, how.blocks) == (regime, blocks)
+    assert not how.exact                      # float adds, below 2**24 values
+    assert how.threads == 1024
+
+
+@pytest.mark.parametrize("n,V,regime", [
+    (1000, 1, "shared"),
+    (1000, 32, "shared"),
+    (1000, 33, "shared"),
+    (10**6, BLOCK_BINS, "shared"),            # at the opt-in limit
+    (10**6, BLOCK_BINS + 1, "global"),        # past one block's bins
+    (10**6, 16 * BLOCK_BINS + 1, "global"),   # past any 16 blocks' bins
+    (4097, 1_000_000, "global"),
+])
+def test_histogram_plan_edges(n, V, regime):
+    how = histmm.plan(n, V, **H100)
+    assert how.regime == regime
+    if regime == "shared":
+        assert how.smem == 16 * -(-V // 4)
+
+
+@pytest.mark.parametrize("V", [1, 7, 64, 2526, 99_761])
+def test_histogram_plan_of_no_values(V):
+    how = histmm.plan(0, V, **H100)
+    assert not how.exact
+    # one block, or (global) enough to zero the next call's output
+    assert how.blocks == (1 if how.regime != "global" else
+                          -(-V // histmm.GLOBAL_ZEROED_PER_BLOCK))
+
+
+@pytest.mark.parametrize("n", [2**24 - 1, 2**24, 10**8])
+def test_histogram_plan_exact_from_2_to_the_24(n):
+    """From 2**24 values a count may pass float32's exact integers: the
+    counts then meet as uint32 (the exact path)."""
+    for V in (7, 2526, 99_761):
+        assert histmm.plan(n, V, **H100).exact == (n >= 2**24)
+
+
+_PLAN_GRID = [(n, V) for n in (0, 1, 4097, 65_536, 10**6, 10**8)
+              for V in (1, 7, 11, 31, 33, 2526, 28_571, BLOCK_BINS, 99_761,
+                        10**6)]
+
+
+@pytest.mark.parametrize("n,V", _PLAN_GRID)
+def test_histogram_plan_limits(n, V):
+    how = histmm.plan(n, V, **H100)
+    assert how.smem + histmm.STATIC_SMEM <= 232_448       # 227 KB a block
+    assert 1 <= how.blocks <= 132      # the exact path's grid is resident
+    assert how.threads == 1024
+    if how.regime == "shared" and how.blocks > 1:
+        # partial copies are flushed bin by bin: no more than the values fill
+        assert how.blocks * V <= n / histmm.FLUSH_FACTOR
+
+
+def test_histogram_plan_follows_the_card():
+    small = histmm.plan(10**6, 28_571, sms=16, smem_optin=100_000)
+    assert small.regime == "global" and small.blocks == 16
+    assert histmm.plan(10**6, 2526, sms=16, smem_optin=100_000).blocks == 16
+    with pytest.raises(ValueError):
+        histmm.plan(-1, 7)
+    with pytest.raises(ValueError):
+        histmm.plan(10, 0)

@@ -422,6 +422,172 @@ def test_moe_route_kernel_matches_plain_version(dev, T, E, k):
     assert ops.LAUNCHES["moe_route"] == 1
 
 
+def hist_values(T, V, seed):
+    """T values in [-3, V + 3): a few dropped on each side."""
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(-3, V + 3, size=T, dtype=np.int32))
+
+
+# every regime of histmm.plan: a private histogram a block, and counts in
+# device memory; one block and a cooperative grid
+@pytest.mark.parametrize("T", [0, 1, 4097, 1_000_000])
+@pytest.mark.parametrize("V", [1, 7, 11, 64, 2526, 28_571, 99_761,
+                               1_000_000])
+def test_histogram_regimes_match_plain_version(dev, T, V):
+    vals = hist_values(T, V, seed=T + V).to(dev)
+    got = ops.histogram(vals, V)
+    want = ref.histogram(vals, V)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("V", [7, 2526, 99_761])
+def test_histogram_of_a_view_off_16_byte_alignment(dev, V):
+    buf = hist_values(200_001, V, seed=V).to(dev)
+    vals = buf[1:]
+    assert vals.data_ptr() % 16 == 4
+    assert torch.equal(ops.histogram(vals, V), ref.histogram(vals, V))
+
+
+def test_histogram_of_equal_values(dev):
+    vals = torch.full((1_000_000,), 3, dtype=torch.int32, device=dev)
+    got = ops.histogram(vals, 7)
+    assert got.tolist() == [0, 0, 0, 1_000_000, 0, 0, 0]
+
+
+def test_histogram_buffers_stay_zero_across_calls_and_streams(dev):
+    """Back to back and interleaved on two streams: below 2**24 values each
+    call takes an output the previous call on its stream zeroed; from 2**24
+    on the counts meet in a scratch each launch leaves zero.  Every result
+    matches, and every pooled output and scratch is zero afterwards."""
+    from repro_torch.kernels import histmm
+
+    cases = [(hist_values(1_000_000, V, seed=V).to(dev), V)
+             for V in (7, 2526, 28_571, 99_761)]
+    big = hist_values(2**24 + 5, 2526, seed=3).to(dev)
+    big[: 2**23] = 1                        # one count past 2**23
+    cases.append((big, 2526))
+    wants = [ref.histogram(x, V) for x, V in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    for _ in range(2):                      # back to back on one stream
+        for (x, V), want in zip(cases, wants):
+            assert torch.equal(ops.histogram(x, V), want)
+    got = []
+    for _ in range(3):                      # interleaved on two streams
+        for s in streams:
+            with torch.cuda.stream(s):
+                got.append([ops.histogram(x, V) for x, V in cases])
+    torch.cuda.synchronize()
+    for outs in got:
+        for out, want in zip(outs, wants):
+            assert torch.equal(out, want)
+    handles = {s.cuda_stream for s in streams}
+    pooled = [k for k in histmm._ZEROED if k[1] in handles]
+    assert len(pooled) == 2 * 4             # (stream, V) of the 1M cases
+    for k in histmm._ZEROED:
+        assert int(histmm._ZEROED[k].abs().sum()) == 0
+    scratches = [k for k in histmm._SCRATCH if k[1] in handles]
+    assert len(scratches) == 2
+    for k in histmm._SCRATCH:
+        assert int(histmm._SCRATCH[k].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("V", [7, 2526, 99_761])
+def test_histogram_counts_past_2_to_the_24_round_once(dev, V):
+    """The exact path: one count of 2**24 + 3 values rounds as the plain
+    version rounds its integer count."""
+    vals = torch.full((2**24 + 3,), V - 1, dtype=torch.int32, device=dev)
+    vals[:2] = 0
+    got = ops.histogram(vals, V)
+    assert torch.equal(got, ref.histogram(vals, V))
+    assert float(got[V - 1]) == float(np.float32(2**24 + 1))
+
+
+@pytest.mark.parametrize("V", [7, 11, 2526, 28_571, 99_761])
+def test_histogram_is_one_device_kernel_a_call(dev, V):
+    """Counted by torch.profiler: one kernel launch a call on the host, no
+    memset or copy, and one histogram kernel a call on the device.  The
+    profiler may hand over none of a short window's device records, so a
+    window with fewer is profiled again, up to five in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    vals = hist_values(1_000_000, V, seed=1).to(dev)
+    ops.histogram(vals, V)                  # the pooled output allocated here
+    torch.cuda.synchronize()
+    calls = 4
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                ops.histogram(vals, V)
+            torch.cuda.synchronize()
+        host = [e.name for e in prof.events()
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cuda")
+                and any(w in e.name for w in ("Launch", "Memset", "Memcpy"))]
+        device = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and e.name != "Activity Buffer Request"]
+        assert len(host) == calls and all("Launch" in n for n in host), host
+        assert len(device) <= calls and all("hist_" in n for n in device), \
+            device
+        if len(device) == calls:
+            break
+    assert len(device) == calls, device
+
+
+@pytest.mark.parametrize("T", [1, 31, 257, 1 << 20])
+@pytest.mark.parametrize("E", [1, 33, 60, 64, 128, 160])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 16])
+def test_moe_route_shapes_match_plain_version(dev, T, E, k):
+    r = np.random.default_rng(T * 7 + E * 3 + k)
+    eids = r.integers(-1, E + 2, size=(T, k), dtype=np.int32)
+    if k > 1:
+        eids[::5, 1] = eids[::5, 0]          # duplicates set one bit
+    eids = torch.from_numpy(eids).to(dev)
+    ops.reset_launches()
+    got = ops.moe_route_bitmap(eids, E)
+    want = ref.moe_route(eids, E)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.LAUNCHES["moe_route"] == 1
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_moe_route_of_an_unaligned_view(dev, k):
+    r = np.random.default_rng(k)
+    flat = torch.from_numpy(r.integers(-1, 66, size=5000 * k + 1,
+                                       dtype=np.int32)).to(dev)
+    eids = flat[1:].view(5000, k)
+    assert eids.is_contiguous() and eids.data_ptr() % 16 == 4
+    assert torch.equal(ops.moe_route_bitmap(eids, 64),
+                       ref.moe_route(eids, 64))
+
+
+# past the 908 ids a token that two stages of a 32-token row hold in the
+# H100's 227 KB of shared memory: read from device memory, same kernel
+@pytest.mark.parametrize("k,offset", [(1000, 0), (1000, 1), (1001, 0)])
+def test_moe_route_of_more_ids_than_it_stages(dev, k, offset):
+    r = np.random.default_rng(k + offset)
+    T, E = 100, 1100
+    flat = torch.from_numpy(r.integers(-1, E + 2, size=T * k + offset,
+                                       dtype=np.int32)).to(dev)
+    eids = flat[offset:].view(T, k)
+    eids[::3, 1] = eids[::3, 0]              # duplicates set one bit
+    ops.reset_launches()
+    got = ops.moe_route_bitmap(eids, E)
+    assert torch.equal(got, ref.moe_route(eids, E))
+    assert ops.LAUNCHES["moe_route"] == 1
+
+
+def test_moe_route_of_ids_all_minus_one(dev):
+    eids = torch.full((1000, 8), -1, dtype=torch.int32, device=dev)
+    got = ops.moe_route_bitmap(eids, 60)
+    assert got.shape == (32, 60) and int(got.abs().sum()) == 0
+
+
 def test_build_primitive_wrappers_reject_wrong_types_and_layouts(dev):
     with pytest.raises(TypeError, match="torch.bool"):
         ops.bitpack(torch.ones(64, 2, dtype=torch.uint8, device=dev))

@@ -1,0 +1,56 @@
+"""Every module of the port imports on its own, star-imports cleanly, and
+names in ``__all__`` only what it defines; the port as a whole loads
+neither JAX nor anything of the reference package."""
+
+import importlib
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import repro_torch
+
+MODULES = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                       "repro_torch."))
+
+
+def test_modules_found():
+    assert "repro_torch.core.ewah_stream" in MODULES
+    assert "repro_torch.kernels.histmm" in MODULES
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_star_import_and_all_names(name):
+    mod = importlib.import_module(name)
+    missing = [n for n in getattr(mod, "__all__", ()) if not hasattr(mod, n)]
+    assert not missing, f"{name}.__all__ names undefined {missing}"
+    namespace = {}
+    exec(f"from {name} import *", namespace)
+    for n in getattr(mod, "__all__", ()):
+        assert namespace[n] is getattr(mod, n)
+
+
+def test_port_loads_no_jax_and_no_reference_module():
+    """In a fresh interpreter, star-import every module of the port and
+    list what landed in ``sys.modules``."""
+    src = Path(repro_torch.__file__).resolve().parents[1]
+    script = (
+        "import pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__,\n"
+        "                               'repro_torch.'):\n"
+        "    exec(f'from {m.name} import *', {})\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith"
+        "('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n"
+        "print(bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(src))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().splitlines()[-2:]
+    assert int(count) >= len(MODULES)
+    assert bad == "[]"
