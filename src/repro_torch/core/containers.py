@@ -21,8 +21,8 @@ keys, container classes, and payloads.  Classes are re-chosen after every
 merge, so ORing two adjacent run containers re-coalesces rather than
 degrading to arrays.  The numpy merge path here is the streaming oracle a
 device backend must match bit-for-bit (``TorchBackend._container_fold_many``
-folds whole container sets in one ``containerops`` launch, or one round at
-a time through ``containerops`` and ``member`` for folds with an "and").
+folds whole container sets, "and" steps included, in one ``containerops``
+launch).
 Container sets convert to the canonical
 :class:`~repro.core.ewah_stream.EwahStream` word format via
 :func:`to_stream` at plan roots, so caching, tombstone ANDs, fan-out

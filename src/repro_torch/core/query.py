@@ -1214,9 +1214,8 @@ class TorchBackend:
     device (``ewah_torch.compress_from_runs``) up to ``MAX_DIRTY`` words a
     row and on the host above it, exactly as the reference does.  Roaring
     columns' ``("cfold", ...)`` nodes of all the call's plans fold first
-    (:func:`lower_containers_many`): the folds without an "and" step in one
-    ``containerops`` launch, the others one round at a time through the
-    ``containerops`` and ``member`` kernels (:meth:`_container_fold_many`).
+    (:func:`lower_containers_many`), every fold of the call in one
+    ``containerops`` launch (:meth:`_container_fold_many`).
 
     ``device=None`` is the CUDA device and raises where there is none;
     ``device="cpu"`` runs every kernel's plain PyTorch version instead.
@@ -1329,12 +1328,11 @@ class TorchBackend:
         n_rows), ...]`` -> their canonical EWAH streams, bit-identical to
         the numpy streaming path (``containers.fold``).
 
-        Two routes.  Every fold without an ``"and"`` step (all that
-        compiled plans emit: Roaring columns fold with "or") goes into ONE
-        ``containerops`` launch (:meth:`_fold_one_launch`).  A fold with an
-        ``"and"`` step keeps the per-round route (:meth:`_container_fold_rounds`),
-        whose array-with-bitmap pairs go to the ``member`` kernel.
-        Unknown ops raise.
+        Every non-empty fold, whatever its ops, goes into ONE
+        ``containerops`` launch (:meth:`_fold_one_launch`): an "and" step
+        intersects on the card inside that launch (an array with a bitmap
+        included; a chunk the "and" set lacks reads as zero), so no round
+        comes back to the host.  Unknown ops raise.
         """
         from . import containers as C
 
@@ -1344,12 +1342,10 @@ class TorchBackend:
             for op in fops:
                 if op not in C._MERGE_OPS:
                     raise ValueError(f"unknown container merge op {op!r}")
-            if not csets:
-                out[i] = C.fold(csets, fops, n_rows)
-            elif "and" in fops[: len(csets) - 1]:
-                out[i] = self._container_fold_rounds(csets, fops, n_rows)
-            else:
+            if csets:
                 one.append(i)
+            else:
+                out[i] = C.fold(csets, fops, n_rows)
         if one:
             streams = self._fold_one_launch([folds[i] for i in one])
             for i, stream in zip(one, streams):
@@ -1357,10 +1353,11 @@ class TorchBackend:
         return out
 
     def _fold_one_launch(self, folds):
-        """Folds without an "and" step in one ``containerops`` launch: the
-        sets go up once in compact form (``kernels.containers.pack_folds``:
-        arrays and runs expand on the card), the kernel writes each fold's
-        dense plane, and each plane re-encodes on the device with
+        """Folds in one ``containerops`` launch: the sets go up once in
+        compact form (``kernels.containers.pack_folds``: arrays and runs
+        expand on the card, a chunk an "and" set lacks is an ``ABSENT``
+        step), the kernel writes each fold's dense plane, and each plane
+        re-encodes on the device with
         ``ewah_torch.compress`` up to ``MAX_DIRTY`` words (on the host
         with ``ewah.compress`` above it, as ``execute_compressed_many``
         does).  Streams and lengths come back in one copy.  ``to_stream``
@@ -1405,80 +1402,6 @@ class TorchBackend:
                 out[order[f + j]] = enc[j]
             f += F
         return out
-
-    def _container_fold_rounds(self, csets, fops, n_rows):
-        """One fold, one round at a time (the route of folds with an
-        "and" step).
-
-        Each fold round dispatches its same-chunk container pairs by
-        class: array-with-bitmap intersections of an ``"and"`` round batch
-        into ONE padded ``member`` kernel launch
-        (``kernels.ops.container_gallop``), every other pair expands to
-        word form and batches into ONE ``containerops`` launch per round
-        (``kernels.ops.container_pairs``).  Chunks present on only one side
-        short-circuit by op semantics.  The accumulated set compresses to
-        the same canonical EWAH stream as the numpy streaming path
-        (``containers.fold``); tests assert bit identity.  Unknown
-        container classes raise (``chunk_words`` / ``_MERGE_OPS``
-        dispatch), never fall through.
-        """
-        from . import containers as C
-        from ..kernels import ops as kops
-
-        if not csets:
-            return C.fold(csets, fops, n_rows)
-        acc = {int(k): (int(c), p) for k, c, p in
-               zip(csets[0].keys, csets[0].classes, csets[0].payloads)}
-        for op, nxt in zip(fops, csets[1:]):
-            if op not in C._MERGE_OPS:
-                raise ValueError(f"unknown container merge op {op!r}")
-            rhs = {int(k): (int(c), p) for k, c, p in
-                   zip(nxt.keys, nxt.classes, nxt.payloads)}
-            out = {}
-            if op in ("or", "andnot"):
-                out.update((k, v) for k, v in acc.items() if k not in rhs)
-            if op == "or":
-                out.update((k, v) for k, v in rhs.items() if k not in acc)
-            gallop, pairs = [], []
-            for k in sorted(set(acc) & set(rhs)):
-                (ca, pa), (cb, pb) = acc[k], rhs[k]
-                if op == "and" and {ca, cb} == {C.ARRAY, C.BITMAP}:
-                    gallop.append((k, ca, pa, cb, pb))
-                else:
-                    pairs.append((k, ca, pa, cb, pb))
-            if gallop:
-                width = max(len(pa) if ca == C.ARRAY else len(pb)
-                            for _, ca, pa, _, pb in gallop)
-                pos = np.full((len(gallop), width), -1, dtype=np.int32)
-                wrd = np.empty((len(gallop), C.CHUNK_WORDS), dtype=np.uint32)
-                for i, (_, ca, pa, cb, pb) in enumerate(gallop):
-                    arr = pa if ca == C.ARRAY else pb
-                    pos[i, : len(arr)] = arr
-                    wrd[i] = pb if cb == C.BITMAP else pa
-                hits = kops.container_gallop(
-                    self._tensor(pos), self._tensor(wrd)).cpu().numpy()
-                for i, (k, ca, pa, cb, pb) in enumerate(gallop):
-                    arr = np.asarray(pa if ca == C.ARRAY else pb,
-                                     dtype=np.int64)
-                    kept = arr[hits[i, : len(arr)].astype(bool)]
-                    if len(kept):
-                        out[k] = C.make_chunk(kept)
-            if pairs:
-                lhs = np.stack([C.chunk_words(ca, pa)
-                                for _, ca, pa, _, _ in pairs])
-                rhs_w = np.stack([C.chunk_words(cb, pb)
-                                  for _, _, _, cb, pb in pairs])
-                merged = kops.container_pairs(
-                    self._tensor(lhs), self._tensor(rhs_w), op)
-                merged = merged.cpu().numpy().view(np.uint32)
-                for i, (k, *_cls) in enumerate(pairs):
-                    if merged[i].any():
-                        out[k] = (C.BITMAP, merged[i])
-            acc = out
-        keys = sorted(acc)
-        final = C.ContainerSet(n_rows, keys, [acc[k][0] for k in keys],
-                               [acc[k][1] for k in keys])
-        return C.to_stream(final)
 
     def _tensor(self, arr):
         """A host int32 or uint32 array -> an int32 (bit-view) tensor on

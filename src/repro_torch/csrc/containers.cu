@@ -1,4 +1,4 @@
-// containers: the two kernels of the Roaring container fold.
+// containers: the two kernels of Roaring container operations.
 //
 // Replace the TPU kernels containerops_kernel and member_kernel
 // (src/repro/kernels/containers.py).
@@ -30,13 +30,21 @@
 // Bound on the H100: bytes, the compact payload read once and the planes
 // written once (pairs: read a and b, write out, 12 B a word), at 3.35 TB/s.
 //
-// member_kernel: the array-with-bitmap intersection of an "and" round.
-// One thread per position; it gathers the bitmap word that holds the
-// position itself (the TPU wrapper gathers with take_along_axis before its
-// kernel) and tests the bit: out = bit (pos & 31) of words[p][pos >> 5],
-// 0 for padding (-1) and any position outside the row's W words.  Bound on
-// the H100: bytes, 8 B a position (read the position, write the flag) plus
-// the bitmap rows read once, at 3.35 TB/s.
+// member_kernel: the array-with-bitmap intersection of an "and" round,
+// as the TPU kernel computes it: out = bit (pos & 31) of words[p][pos >> 5],
+// 0 for padding (-1) and any position outside the row's W words.  It
+// gathers the word that holds each position itself (the TPU wrapper
+// gathers with take_along_axis before its kernel).  The one-launch fold
+// does this work inside containerops_kernel, so only direct calls
+// (ops.container_gallop) reach it.  Bound on the H100: bytes, 8 B a
+// position (read the position, write the flag) plus each distinct word
+// it touches read once, at 3.35 TB/s.  A block takes tiles of 1024
+// positions of one row, 4 a thread: 16-byte position loads and flag
+// stores where L % 4 == 0 and both pointers are aligned (else 4-byte
+// ones, a warp's lanes on neighbouring positions), the tile's row found
+// by one 32-bit division a tile, the 4 word gathers of a thread in
+// flight at once through the read-only path; as many blocks as the SMs
+// hold at once walk the tiles.
 #include "common.cuh"
 
 namespace {
@@ -81,6 +89,18 @@ __device__ __forceinline__ void load_bitmap(const uint32_t* row, int w0,
 // Bits lo..hi (0 <= lo <= hi <= 31) set.
 __device__ __forceinline__ uint32_t bit_range(int lo, int hi) {
   return (0xFFFFFFFFu >> (31 - hi)) & (0xFFFFFFFFu << lo);
+}
+
+constexpr int kMemberThreads = 256;
+constexpr int kMemberPer = 4;  // positions a thread takes from a tile
+constexpr int kMemberTile = kMemberThreads * kMemberPer;
+
+// Bit q of a W-word row (n_bits = 32 W); one unsigned compare rejects the
+// -1 padding and positions past the row.
+__device__ __forceinline__ uint32_t member_bit(const uint32_t* w,
+                                               uint32_t n_bits, int q) {
+  if (static_cast<uint32_t>(q) >= n_bits) return 0u;
+  return (__ldg(w + (q >> 5)) >> (static_cast<uint32_t>(q) & 31u)) & 1u;
 }
 
 }  // namespace
@@ -176,24 +196,42 @@ containerops_kernel(const int4* __restrict__ chunks,
     if (w0 + v < ch.y) dst[v] = acc[v];
 }
 
-__global__ void __launch_bounds__(256)
-member_kernel(long long n, int L, const int* __restrict__ pos,
-              const uint32_t* __restrict__ words, int W,
-              uint32_t* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+__global__ void __launch_bounds__(kMemberThreads)
+member_kernel(int n_tiles, int tiles_per_row, int L, int vec,
+              const int* __restrict__ pos, const uint32_t* __restrict__ words,
+              int W, uint32_t* __restrict__ out) {
   const uint32_t n_bits = static_cast<uint32_t>(W) * 32u;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    const int q = __ldg(pos + i);
-    uint32_t hit = 0u;
-    // one unsigned compare rejects the -1 padding and positions past W
-    if (static_cast<uint32_t>(q) < n_bits) {
-      const long long row = i / L;
-      const uint32_t w = __ldg(words + row * W + (q >> 5));
-      hit = (w >> (static_cast<uint32_t>(q) & 31u)) & 1u;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int row = t / tiles_per_row;
+    const int base = (t - row * tiles_per_row) * kMemberTile;
+    const long long at = static_cast<long long>(row) * L;
+    const uint32_t* w = words + static_cast<long long>(row) * W;
+    int q[kMemberPer];
+    uint32_t hit[kMemberPer];
+    if (vec) {
+      // L % 4 == 0: a thread's 4 positions lie in the row, 16-byte aligned
+      const int j = base + threadIdx.x * kMemberPer;
+      if (j >= L) continue;
+      const int4 u = __ldg(reinterpret_cast<const int4*>(pos + at + j));
+      q[0] = u.x; q[1] = u.y; q[2] = u.z; q[3] = u.w;
+#pragma unroll
+      for (int v = 0; v < kMemberPer; ++v) hit[v] = member_bit(w, n_bits, q[v]);
+      *reinterpret_cast<uint4*>(out + at + j) =
+          make_uint4(hit[0], hit[1], hit[2], hit[3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < kMemberPer; ++v) {
+        const int j = base + v * kMemberThreads + threadIdx.x;
+        q[v] = j < L ? __ldg(pos + at + j) : -1;
+      }
+#pragma unroll
+      for (int v = 0; v < kMemberPer; ++v) hit[v] = member_bit(w, n_bits, q[v]);
+#pragma unroll
+      for (int v = 0; v < kMemberPer; ++v) {
+        const int j = base + v * kMemberThreads + threadIdx.x;
+        if (j < L) out[at + j] = hit[v];
+      }
     }
-    out[i] = hit;
   }
 }
 
@@ -239,12 +277,28 @@ REPRO_EXPORT int launch_member(int device, const void* pos, long long P,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (L <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = P * L;
-  const int threads = 256;
-  member_kernel<<<grid_for(n, threads), threads, 0,
+  if (P <= 0 || L <= 0 || W <= 0 || W > (1 << 26))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_row = (L + kMemberTile - 1) / kMemberTile;
+  const long long n_tiles = P * per_row;
+  if (n_tiles > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  // blocks the SMs hold at once (every card this runs on is one model)
+  static long long resident = 0;
+  if (resident == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, member_kernel, kMemberThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    resident = static_cast<long long>(sms) * (per_sm < 1 ? 1 : per_sm);
+  }
+  const long long blocks = n_tiles < resident ? n_tiles : resident;
+  const int vec = L % 4 == 0 && aligned16(pos) && aligned16(out);
+  member_kernel<<<static_cast<unsigned>(blocks), kMemberThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(
-      n, L, static_cast<const int*>(pos),
-      static_cast<const uint32_t*>(words), W, static_cast<uint32_t*>(out));
+      static_cast<int>(n_tiles), static_cast<int>(per_row), L, vec,
+      static_cast<const int*>(pos), static_cast<const uint32_t*>(words), W,
+      static_cast<uint32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

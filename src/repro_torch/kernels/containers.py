@@ -6,9 +6,9 @@ Replace the TPU kernels ``containerops_kernel`` and ``member_kernel``
 containers, and the bit test of the array-with-bitmap intersection, with
 the ``pos >> 5`` word gather folded into the kernel.
 
-``containerops`` takes whole folds: :func:`pack_folds` turns a list of
-``(container sets, ops, n_rows)`` left folds into one flat int32 buffer,
-uploaded once, that holds
+``containerops`` takes whole folds, whatever their ops: :func:`pack_folds`
+turns a list of ``(container sets, ops, n_rows)`` left folds into one flat
+int32 buffer, uploaded once, that holds
 
 * the chunk table, ``(out offset, words to write, first step, end step)``
   per output chunk (one (fold, chunk key) with a row set in some set the
@@ -21,8 +21,13 @@ uploaded once, that holds
   array positions and run (start, end) pairs as uint16, two a word.
 
 The kernel writes each fold's dense plane at its offset in one zeroed
-output.  The pairwise form (:func:`launch_pairs`) is the same kernel with
-two bitmap steps a chunk and no tables.
+output.  An "and" step with an array container is the array-with-bitmap
+intersection that ``member`` computes for one round (:func:`launch_member`,
+``ops.container_gallop``): inside the fold the array's bits meet the
+accumulated words on the card, so ``TorchBackend`` never launches
+``member``.  A chunk only an "and" set holds gets no output chunk, as its
+result is empty.  The pairwise form (:func:`launch_pairs`) is the same
+kernel with two bitmap steps a chunk and no tables.
 """
 
 from __future__ import annotations

@@ -263,9 +263,10 @@ def _check_decode_args(batch, lengths, n_words):
 def container_pairs(a, b, op="and"):
     """Batched Roaring-container merge in word space: (P, W) pairs ->
     (P, W) with ``op`` in {"and", "or", "andnot"}: the pairwise form of
-    the one-launch fold kernel (two bitmap steps a chunk), used by the
-    per-round route of folds with an "and" step (W =
-    ``containers.CHUNK_WORDS`` in the backend)."""
+    the one-launch fold kernel (two bitmap steps a chunk), the
+    counterpart of the reference wrapper of the same name (W =
+    ``containers.CHUNK_WORDS`` for whole chunks).  ``TorchBackend`` folds
+    through :func:`container_fold` instead."""
     if op not in _containers.OPS:
         raise ValueError(f"unknown container merge op {op!r}")
     if a.shape != b.shape:
@@ -309,7 +310,10 @@ def container_gallop(positions, words):
     -1.  ``words``: (P, W) int32 bitmap rows (W =
     ``containers.CHUNK_WORDS`` in the backend).  Returns (P, L) int32
     flags: 1 where the bitmap holds the position, 0 for misses and
-    padding.  The kernel gathers each position's word itself.
+    padding.  The kernel gathers each position's word itself.  The
+    counterpart of the reference wrapper of the same name;
+    ``TorchBackend`` intersects arrays with bitmaps inside
+    :func:`container_fold` instead.
     """
     if positions.dim() != 2 or words.dim() != 2 or \
             positions.shape[0] != words.shape[0]:

@@ -10,15 +10,17 @@ lowering against the reference.
 * ``TorchBackend(device="cpu")._container_fold`` against
   ``get_backend("jax", interpret=True)._container_fold`` and the numpy
   streaming fold ``containers.fold`` on the four seeded trials of
-  tests/test_containers.py, plus "and" folds that take the
-  array-with-bitmap path;
+  tests/test_containers.py, plus "and" folds of array containers with
+  bitmap containers (the reference's gallop path), which the port folds
+  in one ``container_fold`` call and no ``container_gallop`` call;
 * the one-launch fold (``kernels.containers.pack_folds`` and
   ``ops.container_fold``, here their plain versions) against
   ``containers.fold``, ``JaxBackend._container_fold`` and the folded set's
-  dense words: "or" / "and-not" folds of 1-12 sets mixing array, bitmap
-  and run containers, keys held by one set only, empty sets, row counts
-  off the 65,536-row chunk; folds with an "and" step keep the per-round
-  route;
+  dense words: "or", "and-not", "and" and mixed folds of 1-12 sets mixing
+  array, bitmap and run containers, keys held by one set only (a key only
+  a later "and" set holds comes out absent), empty sets, row counts off
+  the 65,536-row chunk; every fold of a call, "and" or not, takes one
+  ``container_fold`` call;
 * ``lower_containers_many`` against the reference's per-plan
   ``lower_containers``: equal roots, streams and cache hits, each distinct
   fold folded once;
@@ -175,24 +177,34 @@ def test_container_fold_matches_jax_and_numpy(trial):
     np.testing.assert_array_equal(got, C.fold(t_sets, fops, n))
 
 
+def count_calls(monkeypatch, name):
+    """Replace ``ops.<name>`` by a wrapper that records each call's
+    arguments."""
+    calls = []
+    real = getattr(ops, name)
+    monkeypatch.setattr(ops, name, lambda *a: calls.append(a) or real(*a))
+    return calls
+
+
 @pytest.mark.parametrize("dens", [(0.002, 0.3), (0.3, 0.002),
                                   (0.002, 0.3, 0.2)])
 def test_and_fold_takes_gallop_path(dens, monkeypatch):
     """Array containers (density 0.002, about 131 rows a chunk) ANDed with
-    bitmap containers (0.2, 0.3: over 4096 rows a chunk): every round's
-    array-with-bitmap pairs go through container_gallop, and the result
-    still matches the reference fold."""
+    bitmap containers (0.2, 0.3: over 4096 rows a chunk), the pairs the
+    reference gallops through its member kernel: the port intersects them
+    inside one container_fold call, never calls container_gallop, and
+    matches the reference fold."""
     n = 16 * C.CHUNK_ROWS
     pos = [random_positions(n, d, 100 + i) for i, d in enumerate(dens)]
     t_sets = [C.from_positions(p, n) for p in pos]
     r_sets = [RC.from_positions(p, n) for p in pos]
     fops = ("and",) * (len(dens) - 1)
-    calls = []
-    real = ops.container_gallop
-    monkeypatch.setattr(ops, "container_gallop",
-                        lambda p, w: calls.append(p.shape) or real(p, w))
+    classes = {int(c) for s in t_sets[:2] for c in s.classes}
+    assert classes == {C.ARRAY, C.BITMAP}
+    gallops = count_calls(monkeypatch, "container_gallop")
+    folds = count_calls(monkeypatch, "container_fold")
     got = TorchBackend(device="cpu")._container_fold(t_sets, fops, n)
-    assert len(calls) == len(dens) - 1 and all(s[0] == 16 for s in calls)
+    assert len(folds) == 1 and not gallops
     np.testing.assert_array_equal(got, RC.fold(r_sets, fops, n))
     np.testing.assert_array_equal(
         got, get_backend("jax", interpret=True)._container_fold(
@@ -276,42 +288,45 @@ def styled_positions(n_rows, styles, seed):
 STYLES = ("empty", "array", "bitmap", "run", "full")
 
 
+FOLD_KINDS = {"or": ("or",), "andnot": ("andnot",), "mixed": ("or", "andnot"),
+              "and": ("and",), "mixed_and": ("or", "andnot", "and")}
+
+
 def fold_case(k, ops_kind, n_rows, seed):
     """k sets over n_rows rows, each chunk of each set in a random style
     (so every class appears, and many keys live in one set only), with an
-    "or" / "andnot" op sequence."""
+    op sequence of one op or ("mixed", "mixed_and") drawn from
+    ``FOLD_KINDS[ops_kind]``."""
     r = np.random.default_rng(seed)
     n_chunks = -(-n_rows // C.CHUNK_ROWS)
     pos = [styled_positions(n_rows, r.choice(STYLES, size=n_chunks),
                             int(r.integers(0, 2**31))) for _ in range(k)]
-    if ops_kind == "or":
-        fops = ("or",) * (k - 1)
-    elif ops_kind == "andnot":
-        fops = ("andnot",) * (k - 1)
+    kinds = FOLD_KINDS[ops_kind]
+    if len(kinds) == 1:
+        fops = kinds * (k - 1)
     else:
-        fops = tuple(str(o) for o in r.choice(["or", "andnot"], size=k - 1))
+        fops = tuple(str(o) for o in r.choice(list(kinds), size=k - 1))
     return pos, fops
 
 
 ONE_LAUNCH_CASES = [(k, kind, n) for k in (1, 2, 5, 12)
-                    for kind in ("or", "andnot", "mixed")
+                    for kind in FOLD_KINDS
                     for n in (3 * C.CHUNK_ROWS + 901, 4 * C.CHUNK_ROWS)]
 
 
 @pytest.mark.parametrize("k,kind,n", ONE_LAUNCH_CASES)
-def test_one_launch_fold_matches_reference(k, kind, n):
+def test_one_launch_fold_matches_reference(k, kind, n, monkeypatch):
     """The one-launch route's plain version (CPU tensors) against the
     reference's numpy fold and JaxBackend in interpret mode, and its dense
     planes against the folded set's words."""
     pos, fops = fold_case(k, kind, n, seed=k * 1000 + n % 997)
     t_sets = [C.from_positions(p, n) for p in pos]
     r_sets = [RC.from_positions(p, n) for p in pos]
-    be = TorchBackend(device="cpu")
-    calls = []
-    real = be._container_fold_rounds
-    be._container_fold_rounds = lambda *a: calls.append(a) or real(*a)
-    got = be._container_fold_many([(t_sets, fops, n)])[0]
-    assert not calls                  # no "and" step: the one-launch route
+    calls = count_calls(monkeypatch, "container_fold")
+    gallops = count_calls(monkeypatch, "container_gallop")
+    got = TorchBackend(device="cpu")._container_fold_many(
+        [(t_sets, fops, n)])[0]
+    assert len(calls) == 1 and not gallops   # one route, "and" or not
     np.testing.assert_array_equal(got, RC.fold(r_sets, fops, n))
     np.testing.assert_array_equal(
         got, get_backend("jax", interpret=True)._container_fold(
@@ -326,23 +341,40 @@ def test_one_launch_fold_matches_reference(k, kind, n):
 
 def test_one_launch_fold_covers_every_class_and_edge():
     """The cases above hold array, bitmap and run containers, keys held by
-    one set only, and a fold with an empty set."""
-    seen, lone = set(), 0
+    one set only, keys only a later "and" set holds, "and" steps of an
+    array with a bitmap, and a fold with an empty set."""
+    seen, lone, and_only, array_and_bitmap = set(), 0, 0, 0
     for k, kind, n in ONE_LAUNCH_CASES:
-        pos, _ = fold_case(k, kind, n, seed=k * 1000 + n % 997)
+        pos, fops = fold_case(k, kind, n, seed=k * 1000 + n % 997)
         sets = [C.from_positions(p, n) for p in pos]
         seen |= {int(c) for s in sets for c in s.classes}
         keys = [set(s.keys.tolist()) for s in sets]
         lone += sum(1 for i, ks in enumerate(keys) for key in ks
                     if not any(key in o for j, o in enumerate(keys) if j != i))
+        steps = ("or",) + fops
+        ored = set().union(*(ks for ks, op in zip(keys, steps) if op == "or"))
+        and_only += sum(1 for ks, op in zip(keys, steps) if op == "and"
+                        for key in ks if key not in ored)
+        acc = sets[0]
+        for op, nxt in zip(fops, sets[1:]):
+            if op == "and":
+                mine = dict(zip(acc.keys.tolist(), acc.classes.tolist()))
+                array_and_bitmap += sum(
+                    1 for key, c in zip(nxt.keys.tolist(),
+                                        nxt.classes.tolist())
+                    if {c, mine.get(key)} == {C.ARRAY, C.BITMAP})
+            acc = C.merge(acc, nxt, op)
     assert seen == {C.ARRAY, C.BITMAP, C.RUN} and lone > 0
+    assert and_only > 0 and array_and_bitmap > 0
     n = 2 * C.CHUNK_ROWS + 5
     empty = C.from_positions(np.empty(0, np.int64), n)
     full = C.from_positions(np.arange(n), n)
     be = TorchBackend(device="cpu")
     for sets, fops in (([empty], ()), ([empty, full], ("or",)),
                        ([full, empty], ("andnot",)), ([empty, empty], ("or",)),
-                       ([full, full], ("andnot",))):
+                       ([full, full], ("andnot",)), ([empty, full], ("and",)),
+                       ([full, empty], ("and",)), ([full, full], ("and",)),
+                       ([full, empty, full], ("and", "or"))):
         got = be._container_fold_many([(sets, fops, n)])[0]
         np.testing.assert_array_equal(got, C.fold(sets, fops, n))
 
@@ -372,28 +404,25 @@ def test_one_launch_fold_batches_many_folds():
 
 
 def test_and_folds_keep_the_per_round_route(monkeypatch):
-    """A fold with an "and" step takes the per-round route, whose other
-    pairs go through container_pairs; folds without one take the single
-    launch beside it."""
+    """Folds with an "and" step and folds without one share the call's
+    single container_fold, each plane at its own offset: no
+    container_pairs and no container_gallop call, no round on the
+    host."""
     n = 4 * C.CHUNK_ROWS
     pos = [random_positions(n, d, 300 + i)
            for i, d in enumerate((0.002, 0.3, 0.05))]
     t_sets = [C.from_positions(p, n) for p in pos]
-    pairs = []
-    real = ops.container_pairs
-    monkeypatch.setattr(ops, "container_pairs",
-                        lambda a, b, op: pairs.append(op) or real(a, b, op))
-    folded = []
-    real_fold = ops.container_fold
-    monkeypatch.setattr(ops, "container_fold",
-                        lambda b, p: folded.append(p.n_chunks)
-                        or real_fold(b, p))
+    pairs = count_calls(monkeypatch, "container_pairs")
+    gallops = count_calls(monkeypatch, "container_gallop")
+    folded = count_calls(monkeypatch, "container_fold")
     folds = [(t_sets, ("and", "or"), n), (t_sets, ("or", "andnot"), n),
              (t_sets[1:], ("or",), n)]
     got = TorchBackend(device="cpu")._container_fold_many(folds)
     for (sets, fops, _), g in zip(folds, got):
         np.testing.assert_array_equal(g, C.fold(sets, fops, n))
-    assert pairs == ["or"] and len(folded) == 1
+    assert not pairs and not gallops and len(folded) == 1
+    W = n // 32
+    assert folded[0][1].planes == ((0, W), (W, W), (2 * W, W))
 
 
 # ---------------------------------------------------------------------------

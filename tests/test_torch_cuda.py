@@ -308,6 +308,32 @@ def test_container_kernels_match_plain_versions(dev, P):
     assert ops.LAUNCHES["containerops"] == 4 and ops.LAUNCHES["member"] == 1
 
 
+@pytest.mark.parametrize("P,L,W,shift", [
+    (1, 145, 2048, 0),      # 4-byte path (L % 4 != 0), one partial tile
+    (5, 4096, 2048, 0),     # 16-byte path, four whole tiles a row
+    (3, 1500, 2048, 0),     # 16-byte path, a partial last tile a row
+    (4, 1500, 2048, 1),     # positions 4 bytes off alignment: 4-byte path
+    (300, 3, 37, 0),        # short rows, positions past the row's words
+])
+def test_member_kernel_paths_match_plain_version(dev, P, L, W, shift):
+    """member's 16-byte and 4-byte paths, tile edges, padding and
+    positions past the row, against its plain version."""
+    r = np.random.default_rng(P * 7 + L)
+    words = torch.from_numpy(r.integers(0, 2**32, size=(P, W),
+                                        dtype=np.uint32).view(np.int32))
+    pos = r.integers(-1, 2**16, size=(P, L)).astype(np.int32)
+    pos[:, -1] = -1
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(shift, np.int32), pos.reshape(-1)])).to(dev)
+    pos_t = flat[shift:].view(P, L)
+    ops.reset_launches()
+    got = ops.container_gallop(pos_t, words.to(dev))
+    want = ref.container_gallop(pos_t, words.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and ops.LAUNCHES["member"] == 1
+    assert not got[pos_t < 0].any() and not got[pos_t >= 32 * W].any()
+
+
 def test_container_fold_on_card_matches_numpy(dev):
     from repro_torch.core import containers as C
 
@@ -315,13 +341,15 @@ def test_container_fold_on_card_matches_numpy(dev):
     r = np.random.default_rng(21)
     sets = [C.from_positions(np.flatnonzero(r.random(n) < d), n)
             for d in (0.002, 0.3, 0.05, 0.3)]
-    ops.reset_launches()
     be = TorchBackend()
     for fops in (("and", "or", "andnot"), ("and", "and", "and"),
                  ("or", "andnot", "and")):
+        ops.reset_launches()
         np.testing.assert_array_equal(be._container_fold(sets, fops, n),
                                       C.fold(sets, fops, n))
-    assert ops.LAUNCHES["member"] > 0 and ops.LAUNCHES["containerops"] > 0
+        # "and" intersects inside the one fold launch: member never runs
+        assert ops.LAUNCHES["member"] == 0
+        assert ops.LAUNCHES["containerops"] == 1
 
 
 @pytest.mark.parametrize("fuse", [True, False])
