@@ -7,12 +7,13 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the ten CUDA libraries from ``src/repro_torch/csrc`` with nvcc
+1. builds the eleven CUDA libraries from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, prints the card's name and power limit, and prints ptxas's
    registers, stack frame, spills and shared memory for every
    instantiation of ``planfuse_kernel``, ``moe_route_kernel``, the
-   histogram kernels, ``containerops_kernel`` and ``member_kernel``,
-   failing if any has a stack frame or a spill;
+   histogram kernels, ``containerops_kernel``, ``member_kernel`` and
+   ``ewah_and_popcount_kernel``, failing if any has a stack frame or a
+   spill;
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
@@ -57,14 +58,33 @@ reference package, and:
    ``containerops`` launch, which it requires) and device program, and
    holds and times that one launch (``ops.container_fold``, the whole
    fold) against its plain version, with its bound;
-7. MoE dispatch phase: ``models.moe_dispatch.run`` at 16,384 tokens for
+7. serve-plane phase: ``ServePlane`` over the lifecycle writer with two
+   worker processes, each with its own CUDA context on the card, syncs
+   (ships the segments), answers the mix (rows, merged streams and
+   counts identical to the in-process ``SegmentedIndex`` on the card,
+   ``backend="numpy"`` and ``evaluate_mask``), broadcasts a delete of a
+   range of the large column and answers again, saves a two-phase
+   checkpoint, and answers again restored at three workers; the workers'
+   replies must report ``ewah_decode``, ``planfuse`` and ``containerops``
+   launches; it prints spawn, sync, mix, save and restore seconds and the
+   compressed against dense result bytes;
+8. metadata phase: ``MetadataIndex`` over 1,048,576 documents' metadata
+   (16 batches at ``TokenPipeline``'s cardinalities, seed 0) in its three
+   topologies (segmented, ``query_fanout=4``, ``hosts=2``) on the card,
+   two queries each identical to a numpy mask;
+9. AND-popcount phase: ``and_popcount_many`` over the 77 pairs of the
+   dbgen-like index's equality bitmaps plus the reference tests' sparse
+   and all-ones pairs in one ``ewah_and_popcount`` launch, counts against
+   ``np.bitwise_count`` of the decompressed AND; the kernel held against
+   its plain version (counts and iterations) and timed;
+10. MoE dispatch phase: ``models.moe_dispatch.run`` at 16,384 tokens for
    qwen2-moe-a2.7b (4-of-60) and olmoe-1b-7b (8-of-64) and the example's
    8,192 tokens (8-of-64), packing on the card through ``moe_route_bitmap``;
    requires both ``validate`` checks, words identical to ``ref.moe_route``
    and ``routing_bitmap_words(...).T``, and times ``moe_route`` at
    1,048,576 tokens of olmoe's (8-of-64) and qwen2-moe's (4-of-60)
    routing, each call profiled as one kernel launch;
-8. build-primitives phase on the dbgen-like index: ``bitpack`` of the two
+11. build-primitives phase on the dbgen-like index: ``bitpack`` of the two
    small columns' one-hot in row order against the index's own equality
    bitmaps, ``histogram`` of all four columns and census-like's widest
    against ``column_histogram``, ``gray`` forward and back against
@@ -72,9 +92,9 @@ reference package, and:
    version; ``histogram`` calls profiled, one kernel launch a call (no
    memset, no conversion); each primitive timed
    (``histogram`` beside ``torch.bincount``);
-9. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+12. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-10. prints the card line, the ``{"kernels": [...]}`` line and, last,
+13. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -129,6 +149,9 @@ KERNELS = {
                   "src/repro/kernels/histmm.py:40"),
     "moe_route": ("src/repro_torch/csrc/moe_route.cu",
                   "src/repro/kernels/moe_route.py:37"),
+    # no Pallas counterpart: the reference walks with lax.while_loop
+    "ewah_and_popcount": ("src/repro_torch/csrc/ewah_and_popcount.cu",
+                          "src/repro/core/ewah_stream.py:520"),
 }
 CONTAINER_ROWS = 1_000_000           # 16 Roaring chunks of 65,536 rows
 CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
@@ -141,6 +164,14 @@ MOE_EXAMPLE = (8192, 64, 8)          # examples/moe_bitmap_dispatch.py
 MOE_TIMED = ((256 * 4096, 64, 8), (256 * 4096, 60, 4))
 BITPACK_TIMED_VALUES = 512           # one-hot width of the timed bitpack
 GRAY_TIMED_WORDS = 2**26
+# the serve plane's workers, then the workers of its restore
+PLANE_HOSTS = (2, 3)
+PLANE_TIMEOUTS = {"connect_timeout": 300.0, "reply_timeout": 900.0}
+# training-data metadata: TokenPipeline's cardinalities, 16 batches
+METADATA_DOCS = 1_048_576
+METADATA_BATCHES = 16
+METADATA_CARDS = {"source": 8, "domain": 32, "quality_bin": 10,
+                  "length_bin": 8}
 
 
 class SmokeFailure(Exception):
@@ -297,6 +328,7 @@ PTXAS_CHECKED = {
     "histmm": (r"hist_(\w+?)_kernelILi(\d)EEv", 4),        # regime x VEC
     # containerops_kernel<V = 1, 4> and member_kernel
     "containers": (r"(containerops_kernelILi\dE|member_kernel)", 3),
+    "ewah_and_popcount": (r"(ewah_and_popcount_kernel)", 1),
 }
 
 
@@ -306,7 +338,8 @@ def kernel_resources(build, planfuse):
     all static: code, push list and ring), moe_route_kernel (NC mask words,
     16-byte reads), the histogram kernels (regime, template arguments) and
     the container kernels (containerops_kernel's words a thread, and
-    member_kernel); fails unless every stack frame and spill is 0 bytes."""
+    member_kernel) and ewah_and_popcount_kernel; fails unless every stack
+    frame and spill is 0 bytes."""
     import re
 
     out = {}
@@ -933,6 +966,8 @@ def lifecycle_phase(torch, T, cols, cards, preds, device, scale):
     log("[lifecycle] split: " + ", ".join(
         f"{k} {v:.6g}" for k, v in result["split"].items()))
     result["folds"] = folds
+    # the serve-plane phase serves this writer
+    result["writer"], result["dead"] = w, dead
     return result
 
 
@@ -992,6 +1027,318 @@ def fold_launch_phase(torch, folds, device, reps, label):
         f"{bound_ms / max(entry.get('ms', float('inf')), 1e-9):.1%} of it), "
         f"plain {entry.get('plain_ms', float('nan')):.5f} ms")
     return entry
+
+
+def plane_answers(plane, preds, opts, want_rows, want_comp, label, device,
+                  need=("ewah_decode", "planfuse", "containerops")):
+    """The mix through a serve plane's three surfaces, held against the
+    host answers; requires the workers to report launches of the kernels
+    in ``need``.  Returns the mix's wall time and the workers' launches."""
+    import numpy as np
+
+    before = plane.stats()["worker_launches"]
+    t0 = time.perf_counter()
+    comp = plane.execute_compressed_many(preds, **opts)
+    mix_s = time.perf_counter() - t0
+    rows = plane.query_many(preds, **opts)
+    counts = plane.count_many(preds, **opts)
+    after = plane.stats()["worker_launches"]
+    launches = {k: v - before.get(k, 0) for k, v in after.items()
+                if v != before.get(k, 0)}
+    bad = 0
+    for i, p in enumerate(preds):
+        if not (np.array_equal(comp[i][1].data, want_comp[i])
+                and np.array_equal(rows[i][0], want_rows[i])
+                and counts[i] == len(want_rows[i])):
+            bad += 1
+            log(f"[serve_plane] {label}: MISMATCH on {p!r}")
+    check(bad == 0, f"serve plane {label}: {bad} predicates disagree")
+    for k in need:
+        check(device == "cpu" or launches.get(k, 0) > 0,
+              f"serve plane {label}: the workers never launched {k}")
+    log(f"[serve_plane] {label}: {len(preds)} predicates identical to the "
+        f"in-process index and backend='numpy' (rows, streams, counts); "
+        f"execute_compressed_many {mix_s:.4f} s on the host clock; worker "
+        f"launches {launches}")
+    return {"mix_s": mix_s, "worker_launches": launches}
+
+
+def serve_plane_phase(torch, T, w, cols, dead, cards, preds, device):
+    """The lifecycle writer served by ServePlane(w, n_hosts=2): each
+    worker process opens its own CUDA context on the card.  The mix
+    before and after a broadcast delete, then a two-phase checkpoint and
+    a restore at 3 workers, each held against the in-process index on
+    the card, backend='numpy' and evaluate_mask over the live rows."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.query import get_backend
+    from repro_torch.dist.serve_plane import ServePlane
+
+    opts = {} if device != "cpu" else {"device": "cpu"}
+    large = max(range(len(cards)), key=lambda c: cards[c])
+    result = {"launches": {}}
+
+    def host_answers(alive):
+        rows = [np.flatnonzero(T.evaluate_mask(p, cols) & alive)
+                for p in preds]
+        comp = [m.data for _, m in
+                w.index.execute_compressed_many(preds, backend="numpy")]
+        get_backend("torch", **opts).result_cache.clear()
+        t0 = time.perf_counter()
+        mine = w.index.execute_compressed_many(preds, **opts)
+        sync(torch, device)
+        inproc_s = time.perf_counter() - t0
+        check(all(np.array_equal(m.data, c) for (_, m), c in zip(mine, comp)),
+              "the in-process index disagrees with backend='numpy'")
+        return rows, comp, inproc_s
+
+    def add_launches(plane):
+        for k, v in plane.stats()["worker_launches"].items():
+            result["launches"][k] = result["launches"].get(k, 0) + v
+
+    alive = ~dead
+    want_rows, want_comp, result["inproc_mix_s"] = host_answers(alive)
+    t0 = time.perf_counter()
+    plane = ServePlane(w, n_hosts=PLANE_HOSTS[0], **PLANE_TIMEOUTS)
+    result["spawn_s"] = time.perf_counter() - t0
+    ckpt_dir = tempfile.mkdtemp(prefix="serve_plane_ckpt.")
+    try:
+        t0 = time.perf_counter()
+        result["sync_ship_bytes"] = plane.sync()
+        result["sync_s"] = time.perf_counter() - t0
+        result["owners"] = dict(plane._owner_of)
+        # the workers' first query: CUDA contexts and kernel libraries
+        t0 = time.perf_counter()
+        plane.count(T.Not(T.Eq(large, 0)), **opts)
+        result["first_query_s"] = time.perf_counter() - t0
+        log(f"[serve_plane] {PLANE_HOSTS[0]} workers spawned in "
+            f"{result['spawn_s']:.3f} s; sync shipped "
+            f"{result['sync_ship_bytes']} B in {result['sync_s']:.3f} s "
+            f"(owners by generation {result['owners']}); first query "
+            f"{result['first_query_s']:.3f} s; the in-process index's mix "
+            f"{result['inproc_mix_s']:.4f} s")
+        result["before_delete"] = plane_answers(
+            plane, preds, opts, want_rows, want_comp, "before delete",
+            device)
+
+        width = max(1, cards[large] // 100)
+        a = cards[large] * 2 // 3
+        doomed = T.Range(large, a, a + width - 1)
+        hit = T.evaluate_mask(doomed, cols) & alive
+        t0 = time.perf_counter()
+        deleted = plane.delete(doomed, **({} if device != "cpu"
+                                          else {"backend": "numpy"}))
+        result["delete_s"] = time.perf_counter() - t0
+        check(deleted == int(hit.sum()),
+              f"the plane's delete tombstoned {deleted} rows, "
+              f"evaluate_mask says {int(hit.sum())}")
+        alive &= ~hit
+        log(f"[serve_plane] delete of {doomed!r} broadcast: {deleted} rows "
+            f"in {result['delete_s']:.3f} s")
+        want_rows, want_comp, result["inproc_mix_after_delete_s"] = \
+            host_answers(alive)
+        # a delete leaves the Roaring folds as they were: the workers'
+        # result caches hold them, so no containerops launch is due
+        result["after_delete"] = plane_answers(
+            plane, preds, opts, want_rows, want_comp, "after delete", device,
+            need=("ewah_decode", "planfuse"))
+        stats = plane.stats()
+        result["stats"] = stats
+        result["result_bytes_ratio"] = (stats["result_bytes_compressed"]
+                                        / stats["result_bytes_dense"])
+        log(f"[serve_plane] ship_bytes {stats['ship_bytes']}, "
+            f"result_bytes_compressed {stats['result_bytes_compressed']} "
+            f"against result_bytes_dense {stats['result_bytes_dense']} "
+            f"({result['result_bytes_ratio']:.4f})")
+
+        t0 = time.perf_counter()
+        plane.save_checkpoint(ckpt_dir, 1)
+        result["save_s"] = time.perf_counter() - t0
+        add_launches(plane)
+        plane.close()
+        t0 = time.perf_counter()
+        plane = ServePlane.restore(ckpt_dir, n_hosts=PLANE_HOSTS[1],
+                                   **PLANE_TIMEOUTS)
+        result["restore_ship_bytes"] = plane.sync()
+        result["restore_s"] = time.perf_counter() - t0
+        result["restored_owners"] = dict(plane._owner_of)
+        check(plane.restored_step == 1 and plane.world_size == PLANE_HOSTS[1],
+              "the restore did not come up at step 1 on 3 workers")
+        log(f"[serve_plane] two-phase checkpoint saved in "
+            f"{result['save_s']:.3f} s; restored at {PLANE_HOSTS[1]} "
+            f"workers (re-seal, spawn, ship {result['restore_ship_bytes']} "
+            f"B) in {result['restore_s']:.3f} s; owners by generation "
+            f"{result['restored_owners']}")
+        plane.count(T.Not(T.Eq(large, 0)), **opts)
+        result["restored"] = plane_answers(
+            plane, preds, opts, want_rows, want_comp, "restored at 3",
+            device)
+        add_launches(plane)
+    finally:
+        plane.close()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return result
+
+
+def metadata_phase(torch, T, device, scale):
+    """MetadataIndex over METADATA_DOCS documents' metadata (16 batches
+    drawn uniformly at TokenPipeline's cardinalities, seed 0; the default
+    spec: k=1, grayfreq rows, heuristic columns, equality) in its three
+    topologies, each query held against a numpy mask."""
+    import numpy as np
+
+    from repro_torch.data.metadata_index import MetadataIndex
+    from repro_torch.kernels import ops
+
+    opts = {} if device != "cpu" else {"device": "cpu"}
+    batch = max(64, int(METADATA_DOCS * scale) // METADATA_BATCHES)
+    rng = np.random.default_rng(0)
+    batches = [{c: rng.integers(0, card, batch)
+                for c, card in METADATA_CARDS.items()}
+               for _ in range(METADATA_BATCHES)]
+    cols = {c: np.concatenate([b[c] for b in batches])
+            for c in METADATA_CARDS}
+    queries = (
+        ("where domain=3, quality_bin=8",
+         lambda mi: mi.query(where={"domain": 3, "quality_bin": 8}, **opts),
+         (cols["domain"] == 3) & (cols["quality_bin"] == 8)),
+        ("In(domain, [1, 3])",
+         lambda mi: mi.query_pred(T.In("domain", [1, 3]), **opts),
+         np.isin(cols["domain"], [1, 3])),
+    )
+    result = {"docs": batch * METADATA_BATCHES, "launches": {}}
+    for topo, kw in (("hosts=0", {"hosts": 0}),
+                     ("query_fanout=4", {"query_fanout": 4}),
+                     ("hosts=2", {"hosts": 2,
+                                  "plane_opts": PLANE_TIMEOUTS})):
+        mi = MetadataIndex(**kw)
+        try:
+            t0 = time.perf_counter()
+            for b in batches:
+                mi.add_batch(b)
+            entry = {"ingest_s": time.perf_counter() - t0}
+            before = {}
+            if mi.hosts >= 2:
+                t0 = time.perf_counter()
+                entry["plane_ship_bytes"] = mi.plane.sync()
+                entry["plane_start_s"] = time.perf_counter() - t0
+                before = mi.plane.stats()["worker_launches"]
+            ops.reset_launches()
+            for label, run_query, mask in queries:
+                t0 = time.perf_counter()
+                rows, _ = run_query(mi)
+                entry[label] = {"s": time.perf_counter() - t0,
+                                "rows": len(rows)}
+                check(np.array_equal(rows, np.flatnonzero(mask)),
+                      f"metadata {topo}: {label} differs from the numpy mask")
+            if mi.hosts >= 2:
+                after = mi.plane.stats()["worker_launches"]
+                launches = {k: v - before.get(k, 0) for k, v in after.items()}
+            else:
+                launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            for k in ("ewah_decode", "planfuse"):
+                check(device == "cpu" or launches.get(k, 0) > 0,
+                      f"metadata {topo}: {k} never launched")
+            for k, v in launches.items():
+                result["launches"][k] = result["launches"].get(k, 0) + v
+            entry["launches"] = launches
+            result[topo] = entry
+            log(f"[metadata] {topo}: {result['docs']} documents in "
+                f"{METADATA_BATCHES} batches ingested in "
+                f"{entry['ingest_s']:.3f} s"
+                + (f", plane spawned and synced in "
+                   f"{entry['plane_start_s']:.3f} s" if mi.hosts >= 2
+                   else "") + "; "
+                + "; ".join(f"{lb} {entry[lb]['rows']} rows in "
+                            f"{entry[lb]['s']:.4f} s" for lb, _, _ in queries)
+                + f", identical to the numpy masks; launches {launches}")
+        finally:
+            mi.close()
+    return result
+
+
+def and_popcount_phase(torch, T, idx, device, reps):
+    """The AND-popcount walk over all pairs of the dbgen-like index's two
+    equality columns' bitmaps, plus the sparse and all-ones pairs of the
+    reference's tests: ``and_popcount_many`` once (one launch), its
+    counts against np.bitwise_count of the decompressed AND; then the
+    kernel held against its plain version on the same device tensors,
+    counts and iterations, and timed."""
+    import numpy as np
+
+    from repro_torch.core import ewah
+    from repro_torch.core.ewah_stream import and_popcount_many, pack_pairs
+    from repro_torch.kernels import ops, ref
+
+    eq = [c.encoding for c in idx.columns if c.encoding.kind == "equality"]
+    check(len(eq) == 2, f"the dbgen-like index has {len(eq)} equality "
+          "columns, expected 2")
+    pairs = [(a, len(a), b, len(b)) for a in eq[0].streams
+             for b in eq[1].streams]
+    n_eq = len(pairs)
+    sparse_a = np.zeros(100_000, dtype=np.uint32)
+    sparse_b = np.zeros(100_000, dtype=np.uint32)
+    sparse_a[5000:5010] = 0xDEADBEEF
+    sparse_b[5005:5020] = 0xFFFFFFFF
+    ones = np.full(320, 0xFFFFFFFF, dtype=np.uint32)
+    for a, b in ((sparse_a, sparse_b), (ones, ones)):
+        sa, sb = ewah.compress(a), ewah.compress(b)
+        pairs.append((sa, len(sa), sb, len(sb)))
+    where = None if device != "cpu" else "cpu"
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    counts, iters = and_popcount_many(pairs, device=where)
+    wall_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES["ewah_and_popcount"]
+    check(device == "cpu" or launches == 1,
+          f"and_popcount_many took {launches} launches, not 1")
+    popcount = getattr(np, "bitwise_count", None) or (
+        lambda x: np.unpackbits(x.view(np.uint8)).reshape(len(x), -1)
+        .sum(axis=1))
+    for k, (sa, _, sb, _) in enumerate(pairs):
+        want = int(popcount(ewah.decompress(sa) & ewah.decompress(sb)).sum())
+        check(int(counts[k]) == want,
+              f"and_popcount pair {k}: {int(counts[k])} against "
+              f"{want} from the decompressed AND")
+        check(iters[k] <= len(sa) + len(sb) + 4,
+              f"and_popcount pair {k} took {iters[k]} steps")
+    args = pack_pairs(pairs, where)
+    got, want = ops.ewah_and_popcount(*args), ref.ewah_and_popcount(*args)
+    sync(torch, device)
+    mism = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
+    err = max_err(torch, got, want)
+    check(mism == 0 and err == 0,
+          "ewah_and_popcount disagrees with its plain version")
+    words = sum(p[1] + p[3] for p in pairs)
+    nbytes = 4 * words + 4 * 4 * len(pairs) + 8 * len(pairs)
+    bound_ms, bound_by = bound(nbytes, int(iters.sum()))
+    entry = {"max_abs_err": err, "mismatches": mism, "bound_ms": bound_ms,
+             "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+             "pairs": len(pairs), "equality_pairs": n_eq,
+             "stream_words": int(words), "iterations": int(iters.sum()),
+             "max_iterations": int(iters.max())}
+    if device != "cpu":
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
+        entry["ms"] = event_ms(torch, lambda: ops.ewah_and_popcount(*args),
+                               reps, flush)
+        entry["plain_ms"] = event_ms(
+            torch, lambda: ref.ewah_and_popcount(*args), 3, flush, rounds=3)
+    log(f"[and_popcount] {len(pairs)} pairs ({n_eq} of the dbgen-like "
+        f"equality columns' bitmaps, the sparse and all-ones pairs), "
+        f"{words} stream words, {int(iters.sum())} steps (at most "
+        f"{int(iters.max())} a pair); and_popcount_many {wall_s:.4f} s, "
+        f"{launches} launch; counts identical to np.bitwise_count of the "
+        f"decompressed AND; kernel against its plain version: mismatches "
+        f"{mism}, max_abs_err {err} (tolerance 0), "
+        f"{entry.get('ms', float('nan')):.5f} ms (bound {bound_ms:.6f} ms, "
+        f"{bound_by}; "
+        f"{bound_ms / max(entry.get('ms', float('inf')), 1e-9):.1%} of it), "
+        f"plain {entry.get('plain_ms', float('nan')):.5f} ms")
+    return {"kernel": entry, "launches": launches, "wall_s": wall_s,
+            "counts": counts.tolist(), "iterations": iters.tolist()}
 
 
 def held(torch, name, kern, plain):
@@ -1632,10 +1979,19 @@ def run(device="cuda", scale=1.0, reps=20):
         for k, v in life[mode]["launches"].items():
             totals[k] += v
     folds = life.pop("folds")
+    writer, dead = life.pop("writer"), life.pop("dead")
     check(folds and all("and" not in f[1] for f in folds),
           "the lifecycle mix folds Roaring columns with 'or' only")
     report["containers"]["whole_fold"] = fold_launch_phase(
         torch, folds, device, reps, "whole fold")
+    report["serve_plane"] = plane = serve_plane_phase(
+        torch, T, writer, cols, dead, cards, preds, device)
+    report["metadata"] = meta = metadata_phase(torch, T, device, scale)
+    for k, v in [*plane["launches"].items(), *meta["launches"].items()]:
+        totals[k] += v
+    report["and_popcount"] = andpop = and_popcount_phase(
+        torch, T, idx, device, reps)
+    totals["ewah_and_popcount"] = andpop["launches"]
     # the fold drive's one launch; member: the direct calls (no path
     # launches it, see container_phase)
     totals["containerops"] += report["containers"]["launches"]["containerops"]
@@ -1698,7 +2054,8 @@ def main():
     timed = {**report["kernels"], **report["containers"]["kernels"],
              "containerops": report["containers"]["whole_fold"],
              **report["moe_dispatch"]["kernels"],
-             **report["build_primitives"]["kernels"]}
+             **report["build_primitives"]["kernels"],
+             "ewah_and_popcount": report["and_popcount"]["kernel"]}
     for name, (source, replaces) in KERNELS.items():
         k = timed[name]
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -23,8 +23,10 @@ On top of them:
   * :class:`EwahStream` — the compressed result value object the query
     backends' ``execute_compressed`` returns.
 
-The reference package's in-graph dual-cursor walk (``and_popcount``) is
-not part of this copy yet; see ROADMAP.md, queue 1.
+The dual-cursor walk (:func:`and_popcount`, :func:`and_popcount_many`)
+is the reference's in-graph ``lax.while_loop`` as a batch of walks on
+the card, one thread a stream pair (the ``ewah_and_popcount`` kernel),
+with the reference's iteration count.
 
 ``ewah.py`` keeps the codec primitives (compress / decompress / marker
 arithmetic) and re-exports the names below for backwards compatibility.
@@ -44,6 +46,7 @@ from .ewah import (FULL, MAX_CLEAN, MAX_DIRTY, WORD_BITS, _emit_group,
 __all__ = [
     "Cursor", "Appender", "EwahStream", "EwahValidationError",
     "logical_op", "logical_many", "logical_not", "concat_streams",
+    "and_popcount", "and_popcount_many", "pack_pairs",
 ]
 
 
@@ -509,3 +512,73 @@ def concat_streams(parts) -> np.ndarray:
         # so concatenating any all-empty partition equals the whole
         return np.zeros(0, dtype=np.uint32)
     return res.finish()
+
+
+# ---------------------------------------------------------------------------
+# Dual-cursor AND-popcount walk (the ewah_and_popcount kernel).
+# ---------------------------------------------------------------------------
+
+
+def _stream_words(s) -> np.ndarray:
+    """A stream as uint32 words, from numpy or a torch tensor (int32 bit
+    views included)."""
+    if hasattr(s, "detach"):
+        s = s.detach().cpu().numpy()
+    return np.asarray(s).astype(np.uint32, copy=False).reshape(-1)
+
+
+def pack_pairs(pairs, device=None):
+    """``pairs`` of ``(sa, la, sb, lb)`` as the kernel's batch: ``(sa, la,
+    na, sb, lb, nb)`` tensors on ``device`` (None: the CUDA device) —
+    the streams right-padded into (B, Ca) and (B, Cb) int32 rows, their
+    lengths, and their arrays' own sizes."""
+    import torch
+
+    from .query import _resolve_device
+
+    dev = _resolve_device(device)
+    a = [_stream_words(p[0]) for p in pairs]
+    b = [_stream_words(p[2]) for p in pairs]
+
+    def rows(streams):
+        out = np.zeros((len(streams), max([len(s) for s in streams] + [1])),
+                       dtype=np.uint32)
+        for row, s in zip(out, streams):
+            row[: len(s)] = s
+        return torch.from_numpy(out.view(np.int32)).to(dev)
+
+    def ints(values):
+        return torch.tensor([int(v) for v in values], dtype=torch.int32,
+                            device=dev)
+
+    return (rows(a), ints(p[1] for p in pairs), ints(len(s) for s in a),
+            rows(b), ints(p[3] for p in pairs), ints(len(s) for s in b))
+
+
+def and_popcount_many(pairs, device=None):
+    """Popcount of (A AND B) for many stream pairs in one kernel launch.
+
+    ``pairs`` holds ``(sa, la, sb, lb)`` tuples: two EWAH streams (numpy
+    arrays or tensors) and their lengths.  Each walk is the reference's:
+    it consumes at least one compressed word (or one clean-run overlap) a
+    step and is capped at ``len(sa) + len(sb) + 4`` steps, the arrays' own
+    sizes, so iteration counts match it too.  Streams of a pair must
+    encode the same number of words.  ``device=None`` is the CUDA device
+    and raises where there is none; ``device="cpu"`` walks with the plain
+    version.  Returns ``(counts, iterations)``, int64 arrays.
+    """
+    from ..kernels import ops
+
+    counts, iters = ops.ewah_and_popcount(*pack_pairs(pairs, device))
+    return (counts.cpu().numpy().astype(np.int64),
+            iters.cpu().numpy().astype(np.int64))
+
+
+def and_popcount(sa, la, sb, lb, device=None):
+    """Popcount of (A AND B) over two EWAH streams (uint32 words or their
+    int32 bit-views, with their lengths), by the reference's dual-cursor
+    walk; returns ``(count, iterations)`` as ints.  The iteration count is
+    the reference's: at most ``|A| + |B| + 4``, the paper's §3
+    O(|A| + |B|) claim.  See :func:`and_popcount_many` for ``device``."""
+    counts, iters = and_popcount_many([(sa, la, sb, lb)], device=device)
+    return int(counts[0]), int(iters[0])

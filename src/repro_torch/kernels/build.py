@@ -12,11 +12,19 @@ kernel rebuilds and an unchanged one loads from the previous build.  All
 missing libraries build in parallel, one nvcc process each.  Nothing is
 compiled when this module is imported: only a kernel's first launch (or
 :func:`build_all`) calls nvcc, and a failed build raises.
+
+Processes share the build: :func:`build_all` holds an exclusive
+``fcntl.flock`` on ``BUILD_DIR/build.lock`` while it checks for and
+compiles the missing libraries, so a second process (a serve-plane worker
+beside another) waits and then loads what the first one built.  Each
+compiler log is written beside a pid-suffixed temporary and moved into
+place with its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -30,7 +38,8 @@ from . import planfuse
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("planfuse", "recompress", "wordops", "slicefold", "ewah_decode",
-           "containers", "bitpack", "gray", "histmm", "moe_route")
+           "containers", "bitpack", "gray", "histmm", "moe_route",
+           "ewah_and_popcount")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()
@@ -68,30 +77,43 @@ def build_all(names=KERNELS) -> dict:
     ``<library>.log`` beside each library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
+    with open(BUILD_DIR / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _compile_missing(paths)
+    return paths
+
+
+def _compile_missing(paths: dict) -> None:
+    """The locked section of :func:`build_all`."""
+    missing = [n for n, path in paths.items() if not path.exists()]
+    if not missing:
+        return
+    compiler = nvcc()
     procs = {}
-    for name, path in paths.items():
-        if path.exists():
-            continue
+    for name in missing:
+        path = paths[name]
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        log = open(path.with_suffix(".log"), "w")
+        log_tmp = path.with_suffix(f".{os.getpid()}.log")
+        log = open(log_tmp, "w")
         procs[name] = (subprocess.Popen(
-            [nvcc(), *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+            [compiler, *_flags(), "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT), tmp, log, log_tmp)
     failed = []
-    for name, (proc, tmp, log) in procs.items():
+    for name, (proc, tmp, log, log_tmp) in procs.items():
         rc = proc.wait()
         log.close()
+        # atomic: readers never see a partial library or log
+        os.replace(log_tmp, paths[name].with_suffix(".log"))
         if rc != 0:
             failed.append(name)
             tmp.unlink(missing_ok=True)
         else:
-            os.replace(tmp, paths[name])  # atomic: readers never see a partial file
+            os.replace(tmp, paths[name])
     if failed:
         details = "\n".join(
             f"--- {n}\n{paths[n].with_suffix('.log').read_text()}"
             for n in failed)
         raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{details}")
-    return paths
 
 
 def build_log(name: str) -> str:

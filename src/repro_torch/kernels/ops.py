@@ -19,6 +19,7 @@ import torch
 from ..core import ewah_torch
 from . import bitpack as _bitpack
 from . import containers as _containers
+from . import ewah_and_popcount as _and_popcount
 from . import ewah_decode as _decode
 from . import gray as _gray
 from . import histmm as _histmm
@@ -32,7 +33,7 @@ from . import wordops as _wordops
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
             "ewah_decode": 0, "containerops": 0, "member": 0, "bitpack": 0,
-            "gray": 0, "histogram": 0, "moe_route": 0}
+            "gray": 0, "histogram": 0, "moe_route": 0, "ewah_and_popcount": 0}
 
 _OP_NAMES = ("and", "or", "xor")
 
@@ -412,3 +413,30 @@ def moe_route_bitmap(eids, n_experts: int):
     elif words.numel():
         words.zero_()
     return words
+
+
+def ewah_and_popcount(sa, la, na, sb, lb, nb):
+    """Popcount of A AND B for a batch of EWAH stream pairs, by the
+    reference's dual-cursor walk: ``sa`` (B, Ca) and ``sb`` (B, Cb) int32
+    streams, right-padded; ``la``/``lb`` (B,) int32 stream lengths;
+    ``na``/``nb`` (B,) int32 array sizes, the sizes of the arrays the
+    reference would be given (they set its step cap and where its reads
+    clamp; sizes above the row width are cut to it) -> (count,
+    iterations), (B,) int32 each."""
+    if sa.dim() != 2 or sb.dim() != 2 or sa.shape[0] != sb.shape[0]:
+        raise ValueError(f"ewah_and_popcount: streams {tuple(sa.shape)} and "
+                         f"{tuple(sb.shape)} do not pair up")
+    B = sa.shape[0]
+    for name, t in (("la", la), ("na", na), ("lb", lb), ("nb", nb)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"ewah_and_popcount: {name} of shape "
+                             f"{tuple(t.shape)} for {B} pairs")
+    if _on_cpu(sa, la, na, sb, lb, nb):
+        return ref.ewah_and_popcount(sa, la, na, sb, lb, nb)
+    _check_cuda("ewah_and_popcount", sa, la, na, sb, lb, nb)
+    count = torch.empty(B, dtype=torch.int32, device=sa.device)
+    iters = torch.empty(B, dtype=torch.int32, device=sa.device)
+    if B:
+        _and_popcount.launch(sa, la, na, sb, lb, nb, count, iters)
+        LAUNCHES["ewah_and_popcount"] += 1
+    return count, iters

@@ -386,3 +386,76 @@ def ewah_expand(batch, lengths, n_words: int, tab, tab_n, tile_first):
                                   torch.zeros_like(dirty)))
     val = torch.where(found, val, torch.zeros_like(val))
     return val.reshape(B, m, n_words).permute(1, 0, 2).contiguous()
+
+
+def popcount(w):
+    """Set bits of each int32 bit-view word, as int64 (SWAR on the
+    word's unsigned value)."""
+    x = w.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def ewah_and_popcount(sa, la, na, sb, lb, nb):
+    """The kernel's dual-cursor walk, every pair of the batch in step:
+    (B, Ca) and (B, Cb) int32 streams, (B,) lengths and array sizes ->
+    (count, iterations) (B,) int32.  A pair stops where the kernel's
+    thread stops (a stream exhausted, a marker with no words, or the cap
+    of both array sizes + 4 steps); reads clamp to the pair's array size,
+    and sizes above the row width are cut to it."""
+    i64 = torch.int64
+    B, dev = sa.shape[0], sa.device
+    rows = torch.arange(B, device=dev)
+    size_a = na.to(i64).clamp(max=sa.shape[1])
+    size_b = nb.to(i64).clamp(max=sb.shape[1])
+    la, lb = la.to(i64), lb.to(i64)
+    cap = size_a + size_b + 4
+
+    def word(s, size, i):
+        if not s.shape[1]:
+            return torch.zeros(B, dtype=i64, device=dev)
+        w = s[rows, torch.minimum(i, size - 1).clamp(min=0)].to(i64)
+        return torch.where(size > 0, w, 0)
+
+    def load(s, length, size, cur, active):
+        i, c, t, d = cur
+        can = active & (c == 0) & (d == 0) & (i < length)
+        w = word(s, size, i)
+        return (torch.where(can, i + 1, i),
+                torch.where(can, (w >> 15) & 0xFFFF, c),
+                torch.where(can, (w >> 31) & 1, t),
+                torch.where(can, w & 0x7FFF, d))
+
+    zero = torch.zeros(B, dtype=i64, device=dev)
+    every = torch.ones(B, dtype=torch.bool, device=dev)
+    ia, ca, ta, da = load(sa, la, size_a, (zero,) * 4, every)
+    ib, cb, tb, db = load(sb, lb, size_b, (zero,) * 4, every)
+    acc, it = zero.clone(), zero.clone()
+    while True:
+        active = ((ca > 0) | (da > 0)) & ((cb > 0) | (db > 0)) & (it < cap)
+        if not bool(active.any()):
+            break
+        both_clean = active & (ca > 0) & (cb > 0)
+        a_clean = active & (ca > 0) & (cb == 0)      # B on a dirty word
+        b_clean = active & (ca == 0) & (cb > 0)      # A on a dirty word
+        both_dirty = active & (ca == 0) & (cb == 0)
+        n = torch.minimum(ca, cb).clamp(min=1)
+        wa, wb = word(sa, size_a, ia), word(sb, size_b, ib)
+        acc += (torch.where(both_clean & (ta == 1) & (tb == 1), n * 32, 0)
+                + torch.where(a_clean & (ta == 1), popcount(wb), 0)
+                + torch.where(b_clean & (tb == 1), popcount(wa), 0)
+                + torch.where(both_dirty, popcount(wa & wb), 0))
+        ca = ca - torch.where(both_clean, n, a_clean.to(i64))
+        cb = cb - torch.where(both_clean, n, b_clean.to(i64))
+        step_a = (both_dirty | b_clean).to(i64)
+        step_b = (both_dirty | a_clean).to(i64)
+        ia, da = ia + step_a, da - step_a
+        ib, db = ib + step_b, db - step_b
+        ia, ca, ta, da = load(sa, la, size_a, (ia, ca, ta, da), active)
+        ib, cb, tb, db = load(sb, lb, size_b, (ib, cb, tb, db), active)
+        it += active.to(i64)
+    # the kernel's sum wraps at 32 bits, as the reference's int32 does
+    return (ewah_torch._to_int32_bits(acc & 0xFFFFFFFF),
+            it.to(torch.int32))

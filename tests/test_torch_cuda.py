@@ -769,3 +769,101 @@ def test_one_containerops_launch_per_batched_lowering(dev):
     assert ops.LAUNCHES["containerops"] == 1 and ops.LAUNCHES["member"] == 0
     for s, w in zip(be.execute_compressed_many(plans), want):
         np.testing.assert_array_equal(s.data, w.data)
+
+
+def and_popcount_pairs():
+    """Stream pairs for the AND-popcount walk: random word mixes at three
+    sizes, a sparse pair over 100,000 words, all ones, a marker with no
+    words, a length below the array size and dirty counts that run past
+    the arrays (the step cap)."""
+    r = np.random.default_rng(12)
+    pairs = []
+    for n in (10, 300, 5000):
+        for _ in range(4):
+            a, b = (mixed_words((n,), int(r.integers(1 << 30))).numpy()
+                    .view(np.uint32) for _ in range(2))
+            pairs.append((ewah.compress(a), ewah.compress(b)))
+    a = np.zeros(100_000, dtype=np.uint32)
+    b = np.zeros(100_000, dtype=np.uint32)
+    a[5000:5010] = 0xDEADBEEF
+    b[5005:5020] = 0xFFFFFFFF
+    pairs.append((ewah.compress(a), ewah.compress(b)))
+    ones = ewah.compress(np.full(320, 0xFFFFFFFF, dtype=np.uint32))
+    pairs.append((ones, ones))
+    s = pairs[5][0]
+    pairs.append((np.concatenate([s[:2], np.zeros(1, np.uint32), s[2:]]),
+                  pairs[5][1]))
+    over = np.asarray([ewah.make_marker(0, 0, 0x7FFF)] + [0xF0F0F0F0] * 5,
+                      dtype=np.uint32)
+    pairs.append((over, over))
+    out = [(sa, len(sa), sb, len(sb)) for sa, sb in pairs]
+    out.append((s, len(s) // 2, pairs[5][1], len(pairs[5][1])))
+    return out
+
+
+def test_and_popcount_kernel_matches_plain_version(dev):
+    from repro_torch.core.ewah_stream import and_popcount_many
+
+    pairs = and_popcount_pairs()
+    ops.reset_launches()
+    counts, iters = and_popcount_many(pairs)               # on the card
+    assert ops.LAUNCHES["ewah_and_popcount"] == 1
+    want_c, want_i = and_popcount_many(pairs, device="cpu")
+    np.testing.assert_array_equal(counts, want_c)
+    np.testing.assert_array_equal(iters, want_i)
+    for (sa, la, sb, lb), c in zip(pairs[:14], counts):
+        a, b = ewah.decompress(sa), ewah.decompress(sb)
+        assert c == int(sum(bin(int(x)).count("1") for x in a & b))
+
+
+def test_and_popcount_kernel_on_padded_rows(dev):
+    """The wrapper on device rows wider than the streams, with array
+    sizes past the width (cut to it): the kernel and its plain version
+    on the same device tensors."""
+    pairs = and_popcount_pairs()[:6]
+    C = max(max(len(p[0]), len(p[2])) for p in pairs) + 33
+    sa = np.zeros((len(pairs), C), dtype=np.uint32)
+    sb = np.zeros((len(pairs), C), dtype=np.uint32)
+    for i, (a, _, b, _) in enumerate(pairs):
+        sa[i, : len(a)] = a
+        sb[i, : len(b)] = b
+    t = lambda x: torch.from_numpy(x.view(np.int32)).to(dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    sizes = [C + 5 if i % 2 else len(p[0]) for i, p in enumerate(pairs)]
+    args = (t(sa), i32([p[1] for p in pairs]), i32(sizes), t(sb),
+            i32([p[3] for p in pairs]), i32([len(p[2]) for p in pairs]))
+    got = ops.ewah_and_popcount(*args)
+    want = ref.ewah_and_popcount(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_serve_plane_on_card_matches_numpy(dev):
+    """Two workers, each with its own CUDA context on the one card,
+    answer like the in-process index on the card and like NumpyBackend,
+    before and after a broadcast delete; their replies report the
+    kernels they launched."""
+    from repro_torch.dist.serve_plane import ServePlane
+
+    r = np.random.default_rng(6)
+    cols = [r.integers(0, c, size=4000) for c in (7, 11, 300)]
+    w = T.IndexWriter(T.IndexSpec(row_order="lex", encoding="auto"))
+    for lo in range(0, 3200, 800):
+        w.append([c[lo : lo + 800] for c in cols])
+        w.seal()
+    w.append([c[3200:] for c in cols])
+    preds = [T.Eq(0, 3), T.In(1, [1, 5]), T.And(T.Eq(0, 2), T.Range(2, 5, 90)),
+             T.Or(T.Eq(1, 4), T.Not(T.Eq(0, 1)))]
+    with ServePlane(w, n_hosts=2, connect_timeout=120.0,
+                    reply_timeout=600.0) as plane:
+        for _ in range(2):
+            want = w.index.execute_compressed_many(preds, backend="numpy")
+            mine = w.index.execute_compressed_many(preds)
+            got = plane.execute_compressed_many(preds)
+            for (_, ws), (_, ms), (_, gs) in zip(want, mine, got):
+                np.testing.assert_array_equal(gs.data, ws.data)
+                np.testing.assert_array_equal(ms.data, ws.data)
+            plane.delete(T.Range(2, 100, 140))
+        launches = plane.stats()["worker_launches"]
+        assert launches.get("ewah_decode", 0) > 0
+        assert launches.get("planfuse", 0) > 0
