@@ -12,8 +12,9 @@ reference package, and:
    registers, stack frame, spills and shared memory for every
    instantiation of ``planfuse_kernel``, ``moe_route_kernel``, the
    histogram kernels, ``containerops_kernel``, ``member_kernel`` and
-   ``ewah_and_popcount_kernel``, failing if any has a stack frame or a
-   spill;
+   the three ``ewah_and_popcount`` kernels (``ewah_and_popcount_kernel``,
+   ``ewah_pair_chain_kernel``, ``ewah_pair_tiles_kernel``), failing if any
+   has a stack frame or a spill;
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
@@ -72,11 +73,17 @@ reference package, and:
    (16 batches at ``TokenPipeline``'s cardinalities, seed 0) in its three
    topologies (segmented, ``query_fanout=4``, ``hosts=2``) on the card,
    two queries each identical to a numpy mask;
-9. AND-popcount phase: ``and_popcount_many`` over the 77 pairs of the
-   dbgen-like index's equality bitmaps plus the reference tests' sparse
-   and all-ones pairs in one ``ewah_and_popcount`` launch, counts against
-   ``np.bitwise_count`` of the decompressed AND; the kernel held against
-   its plain version (counts and iterations) and timed;
+9. AND-popcount phase at two shapes: ``and_popcount_many`` over the 77
+   pairs of the dbgen-like index's equality bitmaps plus the reference
+   tests' sparse and all-ones pairs (the short route: one launch), and
+   over the 77 pairs of a TPC-H SF 1 lineitem cross-tab (``l_shipmode`` x
+   ``l_discount``: ``uniform_column`` at cardinalities 7 and 11, 6,001,215
+   rows, seed 1, equality bitmaps in table order; the wide route: two
+   launches); counts against ``np.bitwise_count`` of the decompressed
+   AND; the kernels held against their plain versions (counts and
+   iterations; on the wide route phase by phase, and not the step walk,
+   which syncs with the host every step), launches a call, times, bounds
+   and shares of bound printed;
 10. MoE dispatch phase: ``models.moe_dispatch.run`` at 16,384 tokens for
    qwen2-moe-a2.7b (4-of-60) and olmoe-1b-7b (8-of-64) and the example's
    8,192 tokens (8-of-64), packing on the card through ``moe_route_bitmap``;
@@ -102,11 +109,12 @@ measurements also go to ``chiprun_out/chip_smoke.json``.
 
     python3 chip_smoke.py --timings
 
-holds and times only ``member`` (both shapes), ``moe_route`` and
-``histogram`` at their timed shapes through ``ops`` and prints the card
-line and their numbers as one JSON line; copied into another checkout (the
-parent commit's), it times that checkout's kernels, so that two versions
-compare on one card.
+holds and times only ``member`` (both shapes), ``moe_route``,
+``histogram``, ``ewah_and_popcount`` (both shapes of phase 9) and
+``ewah_decode`` (the worst-case batch) at their timed shapes through
+``ops`` and prints the card line and their numbers as one JSON line;
+copied into another checkout (the parent commit's), it times that
+checkout's kernels, so that two versions compare on one card.
 """
 
 from __future__ import annotations
@@ -158,6 +166,9 @@ CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
 LINEITEM_SF10_ROWS = 59_986_052      # TPC-H lineitem at scale factor 10
 # the lifecycle phase's sealed batches; the rest of the table stays open
 LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
+SF1_ROWS = 6_001_215                 # TPC-H SF 1 lineitem
+SF1_CARDS = (7, 11)                  # l_shipmode, l_discount
+SF1_SEED = 1
 MOE_TOKENS = 16_384                  # bench_moe_dispatch.run's own T
 MOE_EXAMPLE = (8192, 64, 8)          # examples/moe_bitmap_dispatch.py
 # 256 sequences x 4096 tokens: olmoe's (E, k), then qwen2-moe's
@@ -328,7 +339,9 @@ PTXAS_CHECKED = {
     "histmm": (r"hist_(\w+?)_kernelILi(\d)EEv", 4),        # regime x VEC
     # containerops_kernel<V = 1, 4> and member_kernel
     "containers": (r"(containerops_kernelILi\dE|member_kernel)", 3),
-    "ewah_and_popcount": (r"(ewah_and_popcount_kernel)", 1),
+    # the short route's kernel and the wide route's two
+    "ewah_and_popcount": (r"(ewah_and_popcount_kernel|ewah_pair_chain_kernel"
+                          r"|ewah_pair_tiles_kernel)", 3),
 }
 
 
@@ -338,8 +351,8 @@ def kernel_resources(build, planfuse):
     all static: code, push list and ring), moe_route_kernel (NC mask words,
     16-byte reads), the histogram kernels (regime, template arguments) and
     the container kernels (containerops_kernel's words a thread, and
-    member_kernel) and ewah_and_popcount_kernel; fails unless every stack
-    frame and spill is 0 bytes."""
+    member_kernel) and the three ewah_and_popcount kernels; fails unless
+    every stack frame and spill is 0 bytes."""
     import re
 
     out = {}
@@ -1260,25 +1273,29 @@ def metadata_phase(torch, T, device, scale):
     return result
 
 
-def and_popcount_phase(torch, T, idx, device, reps):
-    """The AND-popcount walk over all pairs of the dbgen-like index's two
-    equality columns' bitmaps, plus the sparse and all-ones pairs of the
-    reference's tests: ``and_popcount_many`` once (one launch), its
-    counts against np.bitwise_count of the decompressed AND; then the
-    kernel held against its plain version on the same device tensors,
-    counts and iterations, and timed."""
+def popcount_np(x):
+    """np.bitwise_count where numpy has it."""
+    import numpy as np
+
+    if hasattr(np, "bitwise_count"):
+        return np.bitwise_count(x)
+    return np.unpackbits(x.view(np.uint8)).reshape(len(x), -1).sum(axis=1)
+
+
+def dbgen_pairs(idx):
+    """The 79 short pairs: every pair of the dbgen-like index's two
+    equality columns' bitmaps (lex row order, a few markers a stream), and
+    the reference tests' sparse and all-ones pairs; with each pair's count
+    from np.bitwise_count of the decompressed AND."""
     import numpy as np
 
     from repro_torch.core import ewah
-    from repro_torch.core.ewah_stream import and_popcount_many, pack_pairs
-    from repro_torch.kernels import ops, ref
 
     eq = [c.encoding for c in idx.columns if c.encoding.kind == "equality"]
     check(len(eq) == 2, f"the dbgen-like index has {len(eq)} equality "
           "columns, expected 2")
     pairs = [(a, len(a), b, len(b)) for a in eq[0].streams
              for b in eq[1].streams]
-    n_eq = len(pairs)
     sparse_a = np.zeros(100_000, dtype=np.uint32)
     sparse_b = np.zeros(100_000, dtype=np.uint32)
     sparse_a[5000:5010] = 0xDEADBEEF
@@ -1287,58 +1304,149 @@ def and_popcount_phase(torch, T, idx, device, reps):
     for a, b in ((sparse_a, sparse_b), (ones, ones)):
         sa, sb = ewah.compress(a), ewah.compress(b)
         pairs.append((sa, len(sa), sb, len(sb)))
+    want = [int(popcount_np(ewah.decompress(sa) & ewah.decompress(sb)).sum())
+            for sa, _, sb, _ in pairs]
+    return pairs, want
+
+
+def sf1_pairs(n_rows=SF1_ROWS):
+    """The cross-tab ``count(*) GROUP BY l_shipmode, l_discount`` over a
+    TPC-H SF 1 lineitem: ``uniform_column`` at cardinalities 7 and 11,
+    6,001,215 rows (``n_rows``), seed 1 (the dbgen-like table's two small
+    columns at that scale), equality bitmaps in table order compressed by
+    ``ewah.compress``: 7 x 11 = 77 pairs of mostly dirty streams.  With
+    each pair's count from np.bitwise_count of the AND of the words."""
+    import numpy as np
+
+    from repro_torch.core import ewah
+    from repro_torch.data import tables
+
+    rng = np.random.default_rng(SF1_SEED)
+    words = []
+    for card in SF1_CARDS:
+        col = tables.uniform_column(n_rows, card, rng)
+        words.append([ewah.positions_to_words(np.flatnonzero(col == v),
+                                              n_rows) for v in range(card)])
+    streams = [[ewah.compress(w) for w in side] for side in words]
+    pairs = [(a, len(a), b, len(b)) for a in streams[0] for b in streams[1]]
+    want = [int(popcount_np(wa & wb).sum()) for wa in words[0]
+            for wb in words[1]]
+    return pairs, want
+
+
+def and_popcount_shape(torch, label, pairs, want, device, reps):
+    """``and_popcount_many`` over ``pairs`` once, its counts against
+    ``want``; then the kernel held against its plain versions on the same
+    device tensors, counts and iterations (the wide route phase by phase:
+    the chain kernel's tables against ``ref.ewah_pair_chain``, the tile
+    kernel on the plain tables against ``ref.ewah_pair_tiles``; the step
+    walk only on the short route, since it syncs with the host every
+    step), and timed beside its bound."""
+    from repro_torch.core.ewah_stream import and_popcount_many, pack_pairs
+    from repro_torch.kernels import ewah_and_popcount as launcher
+    from repro_torch.kernels import ops, ref
+
     where = None if device != "cpu" else "cpu"
+    args = pack_pairs(pairs, where)
+    short = launcher.is_short(args[0], args[3])
     ops.reset_launches()
     t0 = time.perf_counter()
     counts, iters = and_popcount_many(pairs, device=where)
     wall_s = time.perf_counter() - t0
     launches = ops.LAUNCHES["ewah_and_popcount"]
-    check(device == "cpu" or launches == 1,
-          f"and_popcount_many took {launches} launches, not 1")
-    popcount = getattr(np, "bitwise_count", None) or (
-        lambda x: np.unpackbits(x.view(np.uint8)).reshape(len(x), -1)
-        .sum(axis=1))
+    check(device == "cpu" or launches == (1 if short else 2),
+          f"and_popcount_many took {launches} launches on the "
+          f"{'short' if short else 'wide'} route")
     for k, (sa, _, sb, _) in enumerate(pairs):
-        want = int(popcount(ewah.decompress(sa) & ewah.decompress(sb)).sum())
-        check(int(counts[k]) == want,
-              f"and_popcount pair {k}: {int(counts[k])} against "
-              f"{want} from the decompressed AND")
+        check(int(counts[k]) & 0xFFFFFFFF == want[k] & 0xFFFFFFFF,
+              f"and_popcount {label} pair {k}: {int(counts[k])} against "
+              f"{want[k]} from the decompressed AND")
         check(iters[k] <= len(sa) + len(sb) + 4,
-              f"and_popcount pair {k} took {iters[k]} steps")
-    args = pack_pairs(pairs, where)
-    got, want = ops.ewah_and_popcount(*args), ref.ewah_and_popcount(*args)
-    sync(torch, device)
-    mism = int((got[0] != want[0]).sum() + (got[1] != want[1]).sum())
-    err = max_err(torch, got, want)
-    check(mism == 0 and err == 0,
-          "ewah_and_popcount disagrees with its plain version")
+              f"and_popcount {label} pair {k} took {iters[k]} steps")
+    N, T = launcher.N_WORDS, launcher.TILE
+    if short:
+        plain = lambda: ref.ewah_and_popcount(*args)  # noqa: E731
+    else:
+        sa, la, na, sb, lb, nb = args
+        tables = (ref.ewah_pair_chain(sa, la, N, T),
+                  ref.ewah_pair_chain(sb, lb, N, T))
+        bad = 0
+        for got, want_t in zip(ops.ewah_pair_chain(sa, la, sb, lb), tables):
+            bad += int((got[2] != want_t[2]).sum() + (got[3] != want_t[3])
+                       .sum())
+            for r, k in enumerate(want_t[2][:, 0].tolist()):
+                bad += int((got[0][r, :k] != want_t[0][r, :k]).sum()
+                           + (got[1][r, :k] != want_t[1][r, :k]).sum())
+        check(bad == 0, "ewah_pair_chain_kernel disagrees with "
+                        "ref.ewah_pair_chain")
+        held(torch, "ewah_pair_tiles",
+             lambda: ops.ewah_pair_tiles(*args, *tables),
+             lambda: ref.ewah_pair_tiles(*args, *tables, N))
+        markers = [t[2][:, 0] for t in tables]  # each stream's table count
+        plain = lambda: ref.ewah_pair_tiles(  # noqa: E731
+            *args, ref.ewah_pair_chain(sa, la, N, T),
+            ref.ewah_pair_chain(sb, lb, N, T), N)
+    err, mism = held(torch, "ewah_and_popcount",
+                     lambda: ops.ewah_and_popcount(*args), plain)
     words = sum(p[1] + p[3] for p in pairs)
     nbytes = 4 * words + 4 * 4 * len(pairs) + 8 * len(pairs)
     bound_ms, bound_by = bound(nbytes, int(iters.sum()))
     entry = {"max_abs_err": err, "mismatches": mism, "bound_ms": bound_ms,
              "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
-             "pairs": len(pairs), "equality_pairs": n_eq,
+             "route": "short" if short else "wide",
+             "launches_per_call": launches, "pairs": len(pairs),
              "stream_words": int(words), "iterations": int(iters.sum()),
-             "max_iterations": int(iters.max())}
+             "max_iterations": int(iters.max()), "wall_s": wall_s}
+    if not short:
+        entry["markers_a_stream"] = {
+            side: [int(m.min()), int(m.max())]
+            for side, m in zip(("a", "b"), markers)}
     if device != "cpu":
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
         entry["ms"] = event_ms(torch, lambda: ops.ewah_and_popcount(*args),
                                reps, flush)
-        entry["plain_ms"] = event_ms(
-            torch, lambda: ref.ewah_and_popcount(*args), 3, flush, rounds=3)
-    log(f"[and_popcount] {len(pairs)} pairs ({n_eq} of the dbgen-like "
-        f"equality columns' bitmaps, the sparse and all-ones pairs), "
-        f"{words} stream words, {int(iters.sum())} steps (at most "
-        f"{int(iters.max())} a pair); and_popcount_many {wall_s:.4f} s, "
-        f"{launches} launch; counts identical to np.bitwise_count of the "
-        f"decompressed AND; kernel against its plain version: mismatches "
-        f"{mism}, max_abs_err {err} (tolerance 0), "
-        f"{entry.get('ms', float('nan')):.5f} ms (bound {bound_ms:.6f} ms, "
+        entry["plain_ms"] = event_ms(torch, plain, 3, flush, rounds=3)
+        if not short:  # each launch of the wide route alone
+            made = ops.ewah_pair_chain(sa, la, sb, lb)
+            entry["split_ms"] = {
+                "chain_ms": event_ms(
+                    torch, lambda: ops.ewah_pair_chain(sa, la, sb, lb), reps,
+                    flush),
+                "tiles_ms": event_ms(
+                    torch, lambda: ops.ewah_pair_tiles(*args, *made), reps,
+                    flush)}
+    log(f"[and_popcount] {label}: {len(pairs)} pairs, {words} stream words, "
+        f"{int(iters.sum())} steps (at most {int(iters.max())} a pair); "
+        f"{entry['route']} route, {launches} launch(es) a call; "
+        f"and_popcount_many {wall_s:.4f} s; counts identical to "
+        f"np.bitwise_count of the decompressed AND; against the plain "
+        f"version{'' if short else 's of both phases'}: mismatches {mism}, "
+        f"max_abs_err {err} (tolerance 0); "
+        f"{entry.get('ms', float('nan')):.6f} ms (bound {bound_ms:.7f} ms, "
         f"{bound_by}; "
-        f"{bound_ms / max(entry.get('ms', float('inf')), 1e-9):.1%} of it), "
-        f"plain {entry.get('plain_ms', float('nan')):.5f} ms")
-    return {"kernel": entry, "launches": launches, "wall_s": wall_s,
-            "counts": counts.tolist(), "iterations": iters.tolist()}
+        f"{bound_ms / max(entry.get('ms', float('inf')), 1e-9):.2%} of it), "
+        f"plain {entry.get('plain_ms', float('nan')):.5f} ms; by launch "
+        f"{entry.get('split_ms')}; markers a stream (min, max) "
+        f"{entry.get('markers_a_stream')}")
+    return entry, counts, iters, launches
+
+
+def and_popcount_phase(torch, T, idx, device, reps, scale=1.0):
+    """The AND-popcount walk at two shapes: the 79 short pairs (the short
+    route, one launch) and the SF 1 lineitem cross-tab (the wide route,
+    two launches; cut by ``scale`` in a CPU rehearsal), each through
+    :func:`and_popcount_shape`."""
+    out = {"launches": 0}
+    shapes = (("79 pairs", dbgen_pairs(idx)),
+              ("SF 1 cross-tab", sf1_pairs(max(64, int(SF1_ROWS * scale)))))
+    for key, (label, (pairs, want)) in zip(("dbgen", "sf1"), shapes):
+        entry, counts, iters, launches = and_popcount_shape(
+            torch, label, pairs, want, device, reps)
+        out[key] = {"kernel": entry, "counts": counts.tolist(),
+                    "iterations": iters.tolist()}
+        out["launches"] += launches
+    out["kernel"] = out["sf1"]["kernel"]
+    return out
 
 
 def held(torch, name, kern, plain):
@@ -1558,13 +1666,16 @@ def time_histograms(torch, hist_in, reps, flush):
 
 
 def timings_only(reps=20):
-    """``python3 chip_smoke.py --timings``: only ``member``, ``moe_route``
-    and ``histogram`` at their timed shapes, through ``ops`` (so that the
-    same script times another checkout's kernels, e.g. the parent
-    commit's, on the same card)."""
+    """``python3 chip_smoke.py --timings``: only ``member``, ``moe_route``,
+    ``histogram``, ``ewah_and_popcount`` (79 pairs and the SF 1 cross-tab)
+    and ``ewah_decode`` (the worst-case batch) at their timed shapes,
+    through ``ops`` (so that the same script times another checkout's
+    kernels, e.g. the parent commit's, on the same card)."""
     import torch
 
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core as T
+    from repro_torch.core.ewah_stream import pack_pairs
     from repro_torch.data import tables
     from repro_torch.kernels import ops
 
@@ -1580,9 +1691,25 @@ def timings_only(reps=20):
     hist_in = histogram_inputs(
         torch, tables.make_dbgen_like(n_db, seed=seed_db),
         tables.make_census_like(n_ce, seed=seed_ce), "cuda")
+    idx = build_table(T, tables, "dbgen", n_db, seed_db)[1]
+    and_popcount = {}
+    for label, (pairs, want) in (("79 pairs", dbgen_pairs(idx)),
+                                 ("SF 1 cross-tab", sf1_pairs())):
+        args = pack_pairs(pairs, "cuda")
+        counts = ops.ewah_and_popcount(*args)[0].cpu().tolist()
+        check([c & 0xFFFFFFFF for c in counts]
+              == [w & 0xFFFFFFFF for w in want],
+              f"ewah_and_popcount {label}: counts differ from the "
+              "decompressed AND")
+        and_popcount[label] = event_ms(
+            torch, lambda: ops.ewah_and_popcount(*args), reps, flush)
+        log(f"[timing] ewah_and_popcount {label}: "
+            f"{and_popcount[label]:.6f} ms")
     return {"member": member,
             "moe_route": time_moe_route(torch, "cuda", reps, profiled=False),
-            "histogram": time_histograms(torch, hist_in, reps, flush)}
+            "histogram": time_histograms(torch, hist_in, reps, flush),
+            "ewah_and_popcount": and_popcount,
+            "ewah_decode_worst": worst_case_decode(torch, "cuda", reps)["ms"]}
 
 
 def build_primitives_phase(torch, data, device, reps):
@@ -1990,7 +2117,7 @@ def run(device="cuda", scale=1.0, reps=20):
     for k, v in [*plane["launches"].items(), *meta["launches"].items()]:
         totals[k] += v
     report["and_popcount"] = andpop = and_popcount_phase(
-        torch, T, idx, device, reps)
+        torch, T, idx, device, reps, scale)
     totals["ewah_and_popcount"] = andpop["launches"]
     # the fold drive's one launch; member: the direct calls (no path
     # launches it, see container_phase)

@@ -556,13 +556,16 @@ def pack_pairs(pairs, device=None):
 
 
 def and_popcount_many(pairs, device=None):
-    """Popcount of (A AND B) for many stream pairs in one kernel launch.
+    """Popcount of (A AND B) for many stream pairs, all on the card at once.
 
     ``pairs`` holds ``(sa, la, sb, lb)`` tuples: two EWAH streams (numpy
-    arrays or tensors) and their lengths.  Each walk is the reference's:
-    it consumes at least one compressed word (or one clean-run overlap) a
-    step and is capped at ``len(sa) + len(sb) + 4`` steps, the arrays' own
-    sizes, so iteration counts match it too.  Streams of a pair must
+    arrays or tensors) and their lengths.  Counts and iteration counts are
+    the reference walk's: it consumes at least one compressed word (or one
+    clean-run overlap) a step and is capped at ``len(sa) + len(sb) + 4``
+    steps, the arrays' own sizes.  Short streams take one launch (a thread
+    walks a pair); wide rows take two, which sum each pair's count and
+    steps over its words in parallel (``kernels/ops.py``
+    ``ewah_and_popcount``).  Streams of a pair must
     encode the same number of words.  ``device=None`` is the CUDA device
     and raises where there is none; ``device="cpu"`` walks with the plain
     version.  Returns ``(counts, iterations)``, int64 arrays.

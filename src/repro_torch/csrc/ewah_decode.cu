@@ -59,7 +59,7 @@
 // more to resolve it, spread over the cluster's SMs.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "ewah_chain.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -75,15 +75,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-__device__ __forceinline__ int clamp_len(const int* lengths, long long r,
-                                         int C) {
-  const int len = lengths[r];
-  return len < 0 ? 0 : (len > C ? C : len);
-}
-
-__host__ __device__ __forceinline__ int cdiv(int a, int b) {
-  return (a + b - 1) / b;
-}
+using ewah_chain::block_exclusive_scan;
+using ewah_chain::cdiv;
+using ewah_chain::clamp_len;
+using ewah_chain::window_exit;
 
 // Tiles whose first word lies in [lo, hi) start inside marker k's span.
 __device__ __forceinline__ void mark_tiles(int* tile_first, int lo, int hi,
@@ -133,61 +128,6 @@ __device__ bool walk_stream(const uint32_t* __restrict__ s, int len,
   if (k == 0) mark_tiles(tile_first, 0, n_words, -1, lane, 32);
   if (lane == 0) tab_n[0] = k;
   return true;
-}
-
-// Exclusive scan over the block of (sum saturated at cap, count); the
-// saturated sum is min(true sum, cap) since every term is non-negative, so
-// combining saturated partial sums is exact.  Returns the block's totals.
-__device__ __forceinline__ int2 block_exclusive_scan(int& sum, int& cnt,
-                                                     int cap, int* s_sum,
-                                                     int* s_cnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int is = sum, ic = cnt;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int a = __shfl_up_sync(0xFFFFFFFFu, is, d);
-    const int c = __shfl_up_sync(0xFFFFFFFFu, ic, d);
-    if (lane >= d) {
-      is = min(is + a, cap);
-      ic += c;
-    }
-  }
-  if (lane == 31) {
-    s_sum[warp] = is;
-    s_cnt[warp] = ic;
-  }
-  int es = __shfl_up_sync(0xFFFFFFFFu, is, 1);
-  int ec = __shfl_up_sync(0xFFFFFFFFu, ic, 1);
-  if (lane == 0) es = ec = 0;
-  __syncthreads();
-  if (warp == 0) {
-    int ws = lane < nwarps ? s_sum[lane] : 0;
-    int wc = lane < nwarps ? s_cnt[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int a = __shfl_up_sync(0xFFFFFFFFu, ws, d);
-      const int c = __shfl_up_sync(0xFFFFFFFFu, wc, d);
-      if (lane >= d) {
-        ws = min(ws + a, cap);
-        wc += c;
-      }
-    }
-    if (lane < nwarps) {
-      s_sum[lane] = ws;
-      s_cnt[lane] = wc;
-    }
-  }
-  __syncthreads();
-  if (warp > 0) {
-    es = min(es + s_sum[warp - 1], cap);
-    ec += s_cnt[warp - 1];
-  }
-  sum = es;
-  cnt = ec;
-  const int2 tot = make_int2(s_sum[nwarps - 1], s_cnt[nwarps - 1]);
-  __syncthreads();  // s_sum / s_cnt are free again
-  return tot;
 }
 
 // Levels of windows a stream of len positions needs: the smallest n >= 1
@@ -296,15 +236,11 @@ __device__ __forceinline__ void resolve_stream(
       const int wb = p0 + w * 32;
       const int pos = wb + lane;
       const int wend = min(wb + 32, p1);
-      int J = pos < p1 ? min(pos + 1 + static_cast<int>(wd[u] & 0x7FFFu),
-                             len)
-                       : len;
-#pragma unroll
-      for (int r = 0; r < 5; ++r) {
-        const bool in = J < wend;
-        const int jn = __shfl_sync(0xFFFFFFFFu, J, in ? J - wb : lane);
-        if (in) J = jn;
-      }
+      uint32_t unused = 0;
+      const int J = window_exit<false>(
+          pos < p1 ? min(pos + 1 + static_cast<int>(wd[u] & 0x7FFFu), len)
+                   : len,
+          wb, wend, unused);
       if (pos < p1) tb[pos - p0] = static_cast<Idx>(J);
     }
   }
@@ -397,21 +333,11 @@ __device__ __forceinline__ void resolve_stream(
       uint32_t R = 0;  // the window's markers, bit = position - wb
       if (en[u] >= 0) {
         const int wend = min(wb + 32, p1);
-        int J = pos < p1 ? min(pos + 1 + static_cast<int>(wd[u] & 0x7FFFu),
-                               len)
-                         : len;
         uint32_t reach = 1u << lane;
-#pragma unroll
-        for (int r = 0; r < 5; ++r) {
-          const bool in = J < wend;
-          const int src = in ? J - wb : lane;
-          const uint32_t rn = __shfl_sync(0xFFFFFFFFu, reach, src);
-          const int jn = __shfl_sync(0xFFFFFFFFu, J, src);
-          if (in) {
-            reach |= rn;
-            J = jn;
-          }
-        }
+        window_exit<true>(
+            pos < p1 ? min(pos + 1 + static_cast<int>(wd[u] & 0x7FFFu), len)
+                     : len,
+            wb, wend, reach);
         R = __shfl_sync(0xFFFFFFFFu, reach, en[u] - wb);
       }
       int c = 0;

@@ -7,8 +7,9 @@ plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/<name>.cu
 
-The hash covers the source, the shared header and the flags, so an edited
-kernel rebuilds and an unchanged one loads from the previous build.  All
+The hash covers the source, every shared header (``csrc/*.cuh``) and the
+flags, so an edited kernel or header rebuilds and an unchanged one loads
+from the previous build.  All
 missing libraries build in parallel, one nvcc process each.  Nothing is
 compiled when this module is imported: only a kernel's first launch (or
 :func:`build_all`) calls nvcc, and a failed build raises.
@@ -64,7 +65,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(_flags()).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -416,21 +416,23 @@ def moe_route_bitmap(eids, n_experts: int):
 
 
 def ewah_and_popcount(sa, la, na, sb, lb, nb):
-    """Popcount of A AND B for a batch of EWAH stream pairs, by the
-    reference's dual-cursor walk: ``sa`` (B, Ca) and ``sb`` (B, Cb) int32
-    streams, right-padded; ``la``/``lb`` (B,) int32 stream lengths;
-    ``na``/``nb`` (B,) int32 array sizes, the sizes of the arrays the
-    reference would be given (they set its step cap and where its reads
-    clamp; sizes above the row width are cut to it) -> (count,
-    iterations), (B,) int32 each."""
-    if sa.dim() != 2 or sb.dim() != 2 or sa.shape[0] != sb.shape[0]:
-        raise ValueError(f"ewah_and_popcount: streams {tuple(sa.shape)} and "
-                         f"{tuple(sb.shape)} do not pair up")
-    B = sa.shape[0]
-    for name, t in (("la", la), ("na", na), ("lb", lb), ("nb", nb)):
-        if tuple(t.shape) != (B,):
-            raise ValueError(f"ewah_and_popcount: {name} of shape "
-                             f"{tuple(t.shape)} for {B} pairs")
+    """Popcount of A AND B for a batch of EWAH stream pairs, with the
+    reference's dual-cursor walk's step count: ``sa`` (B, Ca) and ``sb``
+    (B, Cb) int32 streams, right-padded; ``la``/``lb`` (B,) int32 stream
+    lengths; ``na``/``nb`` (B,) int32 array sizes, the sizes of the arrays
+    the reference would be given (they set its step cap and where its
+    reads clamp; sizes above the row width are cut to it) -> (count,
+    iterations), (B,) int32 each.
+
+    Rows at most ``SHORT_WIDTH`` words wide (``kernels/ewah_and_popcount
+    .py``) take one launch, a thread a pair; wider ones two
+    (:func:`ewah_pair_chain`, :func:`ewah_pair_tiles`), the pairs that are
+    not well formed walked inside the second.  On the CPU the same routes
+    take the plain versions."""
+    B = _check_pairs(sa, la, na, sb, lb, nb)
+    if B and not _and_popcount.is_short(sa, sb):
+        return ewah_pair_tiles(sa, la, na, sb, lb, nb,
+                               *ewah_pair_chain(sa, la, sb, lb))
     if _on_cpu(sa, la, na, sb, lb, nb):
         return ref.ewah_and_popcount(sa, la, na, sb, lb, nb)
     _check_cuda("ewah_and_popcount", sa, la, na, sb, lb, nb)
@@ -440,3 +442,58 @@ def ewah_and_popcount(sa, la, na, sb, lb, nb):
         _and_popcount.launch(sa, la, na, sb, lb, nb, count, iters)
         LAUNCHES["ewah_and_popcount"] += 1
     return count, iters
+
+
+def ewah_pair_chain(sa, la, sb, lb):
+    """The wide route's first phase alone: both sides' marker tables
+    (``kernels/ewah_and_popcount.py`` describes them)."""
+    if sa.dim() != 2 or sb.dim() != 2 or sa.shape[0] != sb.shape[0]:
+        raise ValueError(f"ewah_pair_chain: streams {tuple(sa.shape)} and "
+                         f"{tuple(sb.shape)} do not pair up")
+    N, T = _and_popcount.N_WORDS, _and_popcount.TILE
+    if _on_cpu(sa, la, sb, lb):
+        return (ref.ewah_pair_chain(sa, la, N, T),
+                ref.ewah_pair_chain(sb, lb, N, T))
+    _check_cuda("ewah_and_popcount", sa, la, sb, lb)
+    if not (sa.shape[0] and sa.shape[1] and sb.shape[1]):
+        raise ValueError("ewah_pair_chain: empty batch")
+    table_a, table_b = _and_popcount.tables(sa), _and_popcount.tables(sb)
+    _and_popcount.launch_chain(sa, la, sb, lb, table_a, table_b)
+    LAUNCHES["ewah_and_popcount"] += 1
+    return table_a, table_b
+
+
+def ewah_pair_tiles(sa, la, na, sb, lb, nb, table_a, table_b):
+    """The wide route's second phase alone: both sides' tables ->
+    (count, iterations) (B,) int32."""
+    B = _check_pairs(sa, la, na, sb, lb, nb)
+    tables = (*table_a, *table_b)
+    if _on_cpu(sa, la, na, sb, lb, nb, *tables):
+        return ref.ewah_pair_tiles(sa, la, na, sb, lb, nb, table_a, table_b,
+                                   _and_popcount.N_WORDS)
+    _check_cuda("ewah_and_popcount", sa, la, na, sb, lb, nb, *tables)
+    for s, (tab, wtab, meta, ptile) in ((sa, table_a), (sb, table_b)):
+        C = s.shape[1]
+        if (tuple(tab.shape) != (B, C, 2) or tuple(wtab.shape) != (B, C)
+                or tuple(meta.shape) != (B, 3) or tuple(ptile.shape)
+                != (B, _and_popcount.n_tiles(C))):
+            raise ValueError("ewah_pair_tiles: tables do not fit the streams")
+    if not (B and sa.shape[1] and sb.shape[1]):
+        raise ValueError("ewah_pair_tiles: empty batch")
+    out = torch.zeros(2, B, dtype=torch.int32, device=sa.device)
+    _and_popcount.launch_tiles(sa, la, na, sb, lb, nb, table_a, table_b,
+                               out[0], out[1])
+    LAUNCHES["ewah_and_popcount"] += 1
+    return out[0], out[1]
+
+
+def _check_pairs(sa, la, na, sb, lb, nb):
+    if sa.dim() != 2 or sb.dim() != 2 or sa.shape[0] != sb.shape[0]:
+        raise ValueError(f"ewah_and_popcount: streams {tuple(sa.shape)} and "
+                         f"{tuple(sb.shape)} do not pair up")
+    B = sa.shape[0]
+    for name, t in (("la", la), ("na", na), ("lb", lb), ("nb", nb)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"ewah_and_popcount: {name} of shape "
+                             f"{tuple(t.shape)} for {B} pairs")
+    return B

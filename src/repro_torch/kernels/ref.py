@@ -247,7 +247,7 @@ def ewah_decode(batch, lengths, n_words: int):
     return out.reshape(m, B, n_words)
 
 
-def ewah_markers(batch, lengths, n_words: int, tile: int):
+def ewah_markers(batch, lengths, n_words: int, tile: int | None):
     """Phase 1 of the decode kernel: (B, m, C) streams with (B, m) lengths
     -> the marker table (tab (R, C, 2) int32 of (position, output offset),
     tab_n (R,), tile_first (R, ceil(n_words / tile))), rows r = b * m + j.
@@ -267,7 +267,7 @@ def ewah_markers(batch, lengths, n_words: int, tile: int):
     clean + dirty words, clamped at n_words, gives their offsets; the table
     keeps the markers whose offset is below n_words (entries past tab_n
     are 0).  ``tile_first[r, t]`` is the last of them with offset
-    <= t * tile, or -1 for an empty stream.
+    <= t * tile, or -1 for an empty stream (None when ``tile`` is None).
     """
     B, m, C = batch.shape
     R = B * m
@@ -344,6 +344,8 @@ def ewah_markers(batch, lengths, n_words: int, tile: int):
     tab = torch.zeros(R, C, 2, dtype=torch.int32, device=dev)
     tab[r, rank[r, pos], 0] = pos.to(torch.int32)
     tab[r, rank[r, pos], 1] = off[r, pos].to(torch.int32)
+    if tile is None:
+        return tab, tab_n.to(torch.int32), None
     k = torch.arange(C, dtype=i64, device=dev)[None, :]
     offs = torch.where(k < tab_n[:, None], tab[..., 1].to(i64), n_words + 1)
     starts = torch.arange(0, n_words, tile, dtype=i64, device=dev)
@@ -459,3 +461,126 @@ def ewah_and_popcount(sa, la, na, sb, lb, nb):
     # the kernel's sum wraps at 32 bits, as the reference's int32 does
     return (ewah_torch._to_int32_bits(acc & 0xFFFFFFFF),
             it.to(torch.int32))
+
+
+def ewah_pair_chain(s, lengths, n_words: int, tile: int):
+    """Phase 1 of the wide AND-popcount route, one side: (B, C) int32
+    streams with (B,) lengths -> (tab (B, C, 2), wtab (B, C), meta (B, 3),
+    ptile (B, ceil(C / tile))) int32.
+
+    ``tab`` and its count are :func:`ewah_markers`' table ((position,
+    offset) of the markers whose offset is below n_words; entries past the
+    count are 0), ``wtab`` the markers' words; ``meta`` = (count, W, 1 if a
+    marker's dirty run passes the length), W the words before the first
+    marker with no clean and no dirty word, or all of them, or n_words
+    where the table is cut; ``ptile[t]`` the marker whose span [position,
+    position + 1 + its dirty words) holds position ``t * tile``, else -1.
+    """
+    B, C = s.shape
+    dev = s.device
+    i64 = torch.int64
+    tab, tab_n, _ = ewah_markers(s.reshape(B, 1, C), lengths.reshape(B, 1),
+                                 n_words, None)
+    n = tab_n.to(i64)
+    valid = torch.arange(C, dtype=i64, device=dev)[None, :] < n[:, None]
+    pos = tab[..., 0].to(i64)
+    off = tab[..., 1].to(i64)
+    wtab = torch.where(valid, s.gather(1, pos), 0)
+    w = wtab.to(i64) & 0xFFFFFFFF
+    nc = (w >> 15) & 0xFFFF
+    nd = w & 0x7FFF
+    avail = lengths.to(i64).clamp(0, C)[:, None] - pos - 1
+    end = pos + 1 + torch.minimum(nd, avail)
+    bad = (valid & (nd > avail)).any(1)
+    empty = torch.where(valid & (nc == 0) & (nd == 0), off, n_words).amin(1)
+    last = (n - 1).clamp(min=0)[:, None]
+    total = torch.where(n > 0, (off + nc + end - pos - 1).gather(1, last)[:, 0],
+                        0)
+    W = torch.where(total < n_words, torch.minimum(empty, total), n_words)
+    starts = torch.arange(0, C, tile, dtype=i64, device=dev)[None, :]
+    k = torch.searchsorted(torch.where(valid, pos, 1 << 40).contiguous(),
+                           starts.expand(B, -1).contiguous(), right=True) - 1
+    held = (k >= 0) & (starts < end.gather(1, k.clamp(min=0)))
+    ptile = torch.where(held, k, -1)
+    meta = torch.stack([n, W, bad.to(i64)], 1)
+    return (tab, wtab.to(torch.int32), meta.to(torch.int32),
+            ptile.to(torch.int32))
+
+
+def ewah_pair_tiles(sa, la, na, sb, lb, nb, table_a, table_b, n_words: int):
+    """Phase 2 of the wide AND-popcount route: both sides' tables of
+    :func:`ewah_pair_chain` -> (count, iterations) (B,) int32.
+
+    For a well-formed pair, with W the smaller of the two sides' W, over
+    each side's stream positions below its length: a dirty word at logical
+    word p < W is one step where the other stream is clean (its popcount
+    counts where that fill is 1) and, on A's side, where both are dirty
+    (popcount of the AND); a marker whose clean run starts at o < W where
+    the other stream is clean is one step, and adds 32 a word of the two
+    runs' overlap below W where both fills are 1 (on B's side only where
+    A's run started before o).  Edge pairs (a length past its array size,
+    a dirty run past a length, a W of n_words) take
+    :func:`ewah_and_popcount`."""
+    i64 = torch.int64
+    B, dev = sa.shape[0], sa.device
+    size_a = na.to(i64).clamp(max=sa.shape[1])
+    size_b = nb.to(i64).clamp(max=sb.shape[1])
+    meta_a, meta_b = table_a[2].to(i64), table_b[2].to(i64)
+    edge = ((la.to(i64) > size_a) | (lb.to(i64) > size_b)
+            | (meta_a[:, 2] != 0) | (meta_b[:, 2] != 0)
+            | (meta_a[:, 1] >= n_words) | (meta_b[:, 1] >= n_words))
+    W = torch.minimum(meta_a[:, 1], meta_b[:, 1])[:, None]
+    acc = torch.zeros(B, dtype=i64, device=dev)
+    steps = torch.zeros(B, dtype=i64, device=dev)
+
+    def markers(table, C):
+        tab, wtab, meta, _ = table
+        valid = (torch.arange(C, dtype=i64, device=dev)[None, :]
+                 < meta[:, :1].to(i64))
+        big = 1 << 40
+        return (torch.where(valid, tab[..., 0].to(i64), big).contiguous(),
+                torch.where(valid, tab[..., 1].to(i64), big).contiguous(),
+                wtab.to(i64) & 0xFFFFFFFF)
+
+    for side in (0, 1):
+        sx, lx, tx, sy, ty = ((sa, la, table_a, sb, table_b) if side == 0
+                              else (sb, lb, table_b, sa, table_a))
+        C, Cy = sx.shape[1], sy.shape[1]
+        posx, offx, wx = markers(tx, C)
+        posy, offy, wy = markers(ty, Cy)
+        i = torch.arange(C, dtype=i64, device=dev)[None, :].expand(B, -1)
+        kx = (torch.searchsorted(posx, i.contiguous(), right=True) - 1
+              ).clamp(min=0)
+        px, ox, w = posx.gather(1, kx), offx.gather(1, kx), wx.gather(1, kx)
+        ncx, fx = (w >> 15) & 0xFFFF, w >> 31
+        is_mk = i == px
+        q = torch.where(is_mk, ox, ox + ncx + (i - px - 1))
+        live = (i < lx.to(i64)[:, None]) & ~edge[:, None] & (q < W)
+        ky = (torch.searchsorted(offy, q.contiguous(), right=True) - 1
+              ).clamp(min=0)
+        py, oy, w = posy.gather(1, ky), offy.gather(1, ky), wy.gather(1, ky)
+        ncy, fy = (w >> 15) & 0xFFFF, w >> 31
+        y_clean = q < oy + ncy
+        run = live & is_mk & (ncx > 0) & y_clean
+        if side == 1:
+            run &= oy < q
+        overlap = torch.minimum(torch.minimum(q + ncx, oy + ncy), W) - q
+        steps += run.sum(1)
+        acc += torch.where(run & (fx == 1) & (fy == 1), 32 * overlap,
+                           0).sum(1)
+        dirty = live & ~is_mk
+        steps += (dirty & y_clean).sum(1)
+        acc += torch.where(dirty & y_clean & (fy == 1), popcount(sx),
+                           0).sum(1)
+        if side == 0:
+            both = dirty & ~y_clean
+            yw = sy.gather(1, (py + 1 + q - oy - ncy).clamp(0, Cy - 1))
+            steps += both.sum(1)
+            acc += torch.where(both, popcount(sx & yw), 0).sum(1)
+    count = ewah_torch._to_int32_bits(acc & 0xFFFFFFFF)
+    iters = steps.to(torch.int32)
+    if bool(edge.any()):
+        rows = edge.nonzero()[:, 0]
+        count[rows], iters[rows] = ewah_and_popcount(
+            sa[rows], la[rows], na[rows], sb[rows], lb[rows], nb[rows])
+    return count, iters

@@ -119,3 +119,22 @@ def test_failed_build_raises_with_its_log(tmp_path, monkeypatch):
     assert "refuses" in build.build_log("broken")
     assert [p.name for p in build_dir.iterdir()
             if p.suffix == ".tmp" or p.name.count(".") > 1] == []
+
+
+def test_editing_any_header_rebuilds(tmp_path, monkeypatch):
+    """A library's hash covers every csrc/*.cuh, not only common.cuh: an
+    edit to another shared header gives a new library path, and the next
+    build_all compiles it; a header added beside them does too."""
+    csrc, build_dir, stub, calls = stub_tree(tmp_path, ("delta",))
+    (csrc / "chain.cuh").write_text("// chain v1\n")
+    use_stub(monkeypatch, csrc, build_dir, stub)
+    first = build.build_all(("delta",))["delta"]
+    (csrc / "chain.cuh").write_text("// chain v2\n")
+    second = build.build_all(("delta",))["delta"]
+    (csrc / "other.cuh").write_text("// new\n")
+    third = build.build_all(("delta",))["delta"]
+    assert len({first, second, third}) == 3
+    assert all(p.exists() for p in (first, second, third))
+    assert len(calls.read_text().splitlines()) == 3
+    assert build.build_all(("delta",))["delta"] == third
+    assert len(calls.read_text().splitlines()) == 3

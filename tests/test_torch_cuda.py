@@ -807,7 +807,8 @@ def test_and_popcount_kernel_matches_plain_version(dev):
     pairs = and_popcount_pairs()
     ops.reset_launches()
     counts, iters = and_popcount_many(pairs)               # on the card
-    assert ops.LAUNCHES["ewah_and_popcount"] == 1
+    # rows of 5,000 words: the wide route, two launches
+    assert ops.LAUNCHES["ewah_and_popcount"] == 2
     want_c, want_i = and_popcount_many(pairs, device="cpu")
     np.testing.assert_array_equal(counts, want_c)
     np.testing.assert_array_equal(iters, want_i)
@@ -835,6 +836,61 @@ def test_and_popcount_kernel_on_padded_rows(dev):
     got = ops.ewah_and_popcount(*args)
     want = ref.ewah_and_popcount(*args)
     torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_and_popcount_wide_route_phase_by_phase(dev):
+    """Long pairs (tests/torch_pair_cases.py) and pairs that are not well
+    formed, one batch on the wide route: the chain kernel's tables
+    against ref.ewah_pair_chain (up to each row's count), the tile kernel
+    on the plain tables against ref.ewah_pair_tiles, and the two launches
+    of ops.ewah_and_popcount against the composed plain versions and the
+    step walk."""
+    from repro_torch.core.ewah_stream import pack_pairs
+    from repro_torch.kernels import ewah_and_popcount as launcher
+    from torch_pair_cases import edge_pairs, long_pairs
+
+    pairs = long_pairs() + edge_pairs() + and_popcount_pairs()
+    args = pack_pairs(pairs, dev)
+    sa, la, na, sb, lb, nb = args
+    N, T = launcher.N_WORDS, launcher.TILE
+    plain = (ref.ewah_pair_chain(sa, la, N, T),
+             ref.ewah_pair_chain(sb, lb, N, T))
+    for got, want in zip(ops.ewah_pair_chain(sa, la, sb, lb), plain):
+        tab, wtab, meta, ptile = got
+        assert torch.equal(meta, want[2]) and torch.equal(ptile, want[3])
+        for r, k in enumerate(want[2][:, 0].tolist()):
+            assert torch.equal(tab[r, :k], want[0][r, :k])
+            assert torch.equal(wtab[r, :k], want[1][r, :k])
+    got = ops.ewah_pair_tiles(*args, *plain)
+    want = ref.ewah_pair_tiles(*args, *plain, N)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ops.reset_launches()
+    got = ops.ewah_and_popcount(*args)
+    assert ops.LAUNCHES["ewah_and_popcount"] == 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    short = [k for k, p in enumerate(pairs) if max(len(p[0]), len(p[2]))
+             <= 2000]
+    walk = ref.ewah_and_popcount(*(t[short] for t in args))
+    assert torch.equal(got[0][short], walk[0])
+    assert torch.equal(got[1][short], walk[1])
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_and_popcount_routes_at_the_short_width(dev, extra):
+    """Rows of SHORT_WIDTH words: one launch; one word more: two; both
+    bit-identical to the step walk on the same device tensors."""
+    from repro_torch.core.ewah_stream import pack_pairs
+    from repro_torch.kernels import ewah_and_popcount as launcher
+
+    sa, la, na, sb, lb, nb = pack_pairs(and_popcount_pairs()[:8], dev)
+    width = launcher.SHORT_WIDTH + extra
+    pad = lambda s: torch.nn.functional.pad(s, (0, width - s.shape[1]))
+    args = (pad(sa), la, na, pad(sb), lb, nb)
+    ops.reset_launches()
+    got = ops.ewah_and_popcount(*args)
+    assert ops.LAUNCHES["ewah_and_popcount"] == 1 + extra
+    want = ref.ewah_and_popcount(*args)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
