@@ -99,9 +99,30 @@ reference package, and:
    version; ``histogram`` calls profiled, one kernel launch a call (no
    memset, no conversion); each primitive timed
    (``histogram`` beside ``torch.bincount``);
-12. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+12. model-serving phase (``[lm_serve]``): tinyllama-1.1b at its published
+   widths (22 layers, d_model 2048, 32 heads, 4 KV heads, head_dim 64,
+   d_ff 5632, vocab 32000, bf16: 1,100,048,384 parameters,
+   2,200,096,768 B) built on the card from a seeded generator; then the
+   server's own entry point, ``repro_torch.launch.serve.main`` with the
+   reference's defaults and ``--no-smoke`` (64 requests, batch 8, 16
+   generated tokens, max length 128, query backend torch): padding waste
+   in arrival order and histogram-aware, requests and tokens served,
+   tok/s on the host clock after a synchronise, peak device memory, and
+   the packing's kernel launches, which must include ``ewah_decode`` and
+   ``planfuse``; the same run with ``--profile`` for the synchronised
+   phase split (pack, prefill, decode); admission batches on the card
+   identical to numpy in five topologies (rebuild, ``query_fanout=2``,
+   segmented, segmented with the compactor, segmented behind a
+   two-worker plane whose workers run on the card); a float32 copy (TF32
+   off) whose fused prefill must agree with a token-by-token decode loop
+   and whose logits and 4 greedy tokens must agree with the same port on
+   the CPU, at ``rtol = atol = 2e-3``; and CUDA-event times of prefill at
+   (8, 32) and (8, 112) and of one decode step at batch 8 with 128 cache
+   slots beside their bounds, and a profiler window over one packed
+   batch (device busy, idle share, top kernels);
+13. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-13. prints the card line, the ``{"kernels": [...]}`` line and, last,
+14. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -183,6 +204,19 @@ METADATA_DOCS = 1_048_576
 METADATA_BATCHES = 16
 METADATA_CARDS = {"source": 8, "domain": 32, "quality_bin": 10,
                   "length_bin": 8}
+# [lm_serve]: tinyllama-1.1b at its published widths behind the serving
+# launcher, with the reference server's defaults and smoke off
+LM_ARCH = "tinyllama-1.1b"
+LM_PARAMS = 1_100_048_384
+LM_WEIGHT_BYTES = 2_200_096_768      # bf16
+LM_SERVE_ARGV = ["--no-smoke", "--requests", "64", "--batch", "8",
+                 "--gen-tokens", "16", "--max-len", "128"]
+LM_PREFILLS = ((8, 32), (8, 112))    # (batch, prompt): the 16-token buckets
+LM_DECODE = (8, 128)                 # (batch, cache slots)
+LM_TOL = 2e-3                        # tests/test_prefill.py's rtol = atol
+LM_SEED = 20
+BF16_OPS_PER_S = 989e12              # H100 SXM tensor cores, dense bf16
+
 
 
 class SmokeFailure(Exception):
@@ -2041,6 +2075,330 @@ def worst_case_decode(torch, device, reps, m=55, n=31_250, C=32_768):
 
 
 # ---------------------------------------------------------------------------
+# model serving
+# ---------------------------------------------------------------------------
+
+
+def step_ms(torch, fn, reps):
+    """CUDA-event time of each of ``reps`` calls of ``fn`` after a
+    warm-up, each call's events around it alone: (median, min, max).
+    Eager PyTorch launches many small kernels, so a call's time includes
+    the gaps in which the card waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in pairs]
+    return statistics.median(times), min(times), max(times)
+
+
+def lm_main(serve, argv):
+    """``serve.main(argv)`` with its printed lines logged as [lm_serve]."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = serve.main(argv)
+    for line in buf.getvalue().splitlines():
+        log(f"[lm_serve] main: {line}")
+    return result
+
+
+def lm_correctness(torch, cfg, device):
+    """float32 at full width, TF32 off: (a) the fused prefill against a
+    token-by-token decode of the same 16-token prompt, batch 2; (b) the
+    card's prefill logits and 4 greedy tokens against the same port on the
+    CPU with the same weights."""
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.serve.prefill import prefill_with_cache
+    from repro_torch.train import serve_step
+
+    model = transformer.init_params(cfg, device=device)
+    prompt = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    max_len = 32
+
+    def err(a, b):
+        return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+    def generate(m, dev):
+        logits, cache = prefill_with_cache(m, cfg, prompt.to(dev), max_len)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        toks = [tok]
+        for t in range(16, 19):
+            tok, cache = serve_step(m, tok, cache, t, cfg=cfg)
+            toks.append(tok)
+        return logits, torch.cat(toks, 1).cpu()
+
+    logits_p, cache_p = prefill_with_cache(model, cfg, prompt.to(device),
+                                           max_len)
+    cache = transformer.init_decode_cache(cfg, 2, max_len, device=device)
+    for t in range(16):
+        logits_d, cache = transformer.decode_step(
+            model, cfg, prompt[:, t:t + 1].to(device), cache, t)
+    out = {"prefill_vs_decode_logits_err": err(logits_p, logits_d),
+           "prefill_vs_decode_cache_err": max(
+               err(cache_p[k][:, :, :16], cache[k][:, :, :16])
+               for k in ("k", "v"))}
+    check(torch.allclose(logits_p, logits_d, rtol=LM_TOL, atol=LM_TOL)
+          and all(torch.allclose(cache_p[k][:, :, :16], cache[k][:, :, :16],
+                                 rtol=LM_TOL, atol=LM_TOL)
+                  for k in ("k", "v")),
+          f"[lm_serve] full-width prefill and decode loop disagree: {out}")
+    del cache, cache_p
+    logits_c, toks_c = generate(model, device)
+    cpu = transformer.Transformer(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()},
+                        assign=True)
+    del model
+    logits_h, toks_h = generate(cpu, torch.device("cpu"))
+    out["card_vs_cpu_logits_err"] = err(logits_c, logits_h)
+    out["tokens_card"] = toks_c.tolist()
+    out["tokens_cpu"] = toks_h.tolist()
+    check(torch.equal(toks_c, toks_h),
+          f"[lm_serve] greedy tokens on the card {toks_c.tolist()} != CPU "
+          f"{toks_h.tolist()}")
+    check(torch.allclose(logits_c.cpu(), logits_h, rtol=LM_TOL, atol=LM_TOL),
+          f"[lm_serve] card and CPU logits disagree: "
+          f"{out['card_vs_cpu_logits_err']}")
+    log(f"[lm_serve] float32 full width, TF32 off (tolerance rtol = atol = "
+        f"{LM_TOL}): prefill vs decode loop max abs err logits "
+        f"{out['prefill_vs_decode_logits_err']:.3g}, cache "
+        f"{out['prefill_vs_decode_cache_err']:.3g}; card vs CPU logits "
+        f"{out['card_vs_cpu_logits_err']:.3g}, greedy tokens identical "
+        f"{out['tokens_card']}")
+    return out
+
+
+def lm_timing(torch, model, cfg, device, reps):
+    """Prefill and one decode step of the bf16 model beside their bounds,
+    and a profiler window over one packed batch."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.prefill import prefill_with_cache
+    from repro_torch.train import serve_step
+
+    gen = torch.Generator(device).manual_seed(LM_SEED)
+    nonembed = transformer.n_params(model) - model.embed.numel()
+    item = model.embed.element_size()
+    kv_bytes = (2 * cfg.n_layers * LM_DECODE[0] * LM_DECODE[1]
+                * cfg.n_kv_heads * cfg.head_dim * item)
+    out = {}
+
+    def timed(name, fn, nbytes, nops):
+        med, lo, hi = step_ms(torch, fn, reps)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = nops / BF16_OPS_PER_S * 1e3
+        bound_ms, by = ((byte_ms, "bytes") if byte_ms >= op_ms
+                        else (op_ms, "operations"))
+        out[name] = {"ms": med, "min_ms": lo, "max_ms": hi, "reps": reps,
+                     "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+                     "ops": nops}
+        log(f"[lm_serve] {name}: median {med:.4f} ms (min {lo:.4f}, max "
+            f"{hi:.4f}, {reps} calls); bound {bound_ms:.4f} ms ({by}: "
+            f"{nbytes} B, {nops:.4g} ops), {bound_ms / med:.1%} of it")
+
+    for b, s in LM_PREFILLS:
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=device, dtype=torch.int32)
+        timed(f"prefill {b}x{s}",
+              lambda: prefill_with_cache(model, cfg, toks, LM_DECODE[1]),
+              (nonembed + b * s * cfg.d_model) * item,
+              2 * nonembed * b * s)
+    b, slots = LM_DECODE
+    toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                         device=device, dtype=torch.int32)
+    cache = transformer.init_decode_cache(cfg, b, slots, device=device)
+    timed(f"decode step {b}x{slots}",
+          lambda: serve_step(model, toks, cache, slots - 1, cfg=cfg),
+          (nonembed + b * cfg.d_model) * item + kv_bytes,
+          2 * nonembed * b)
+
+    prompt = torch.randint(0, cfg.vocab_size, (8, 32), generator=gen,
+                           device=device, dtype=torch.int32)
+
+    def one_batch():
+        logits, cache = prefill_with_cache(model, cfg, prompt, 128)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        for t in range(32, 47):
+            tok, cache = serve_step(model, tok, cache, t, cfg=cfg)
+
+    one_batch()
+    prof = device_profile(torch, one_batch)
+    check(prof is not None, "[lm_serve] torch.profiler recorded no device "
+          "time for one packed batch")
+    launches = sum(c for _, _, c in prof["by_kernel"])
+    out["profile_one_batch"] = prof
+    log(f"[lm_serve] profile, one packed batch (prefill 8x32 + 15 decode "
+        f"steps): wall {prof['wall_ms']:.3f} ms, device busy "
+        f"{prof['device_busy_ms']:.3f} ms, idle share "
+        f"{prof['idle_share']:.1%}, {launches} device records "
+        f"({launches / 16:.1f} a step)")
+    for key, ms, count in prof["by_kernel"][:10]:
+        log(f"[lm_serve] {ms:10.4f} ms  x{count:<5d} {key[:100]}")
+    return out
+
+
+def lm_admission(torch, serve, ops, device):
+    """Admission batches on the torch backend identical to numpy in the
+    same topology, for the server's 64 requests and for 1,500 (seed 5),
+    whose waves seal five segments of 256 so that the segmented
+    topologies answer on the card too; each call starts from a cold
+    result cache, and on the card the 1,500 queue must launch
+    ``ewah_decode`` and ``planfuse`` in every topology (behind the plane,
+    in its workers)."""
+    import numpy as np
+
+    from repro_torch.core.query import get_backend
+
+    modes = {"rebuild": {}, "query_fanout=2": {"query_fanout": 2},
+             "segmented": {"admission": "segmented"},
+             "segmented+compactor": {"admission": "segmented",
+                                     "compactor": True},
+             "segmented hosts=2": {"admission": "segmented", "hosts": 2}}
+    queues = {"64 requests": serve.make_requests(64, np.random.default_rng(0)),
+              "1500 requests": serve.make_requests(
+                  1500, np.random.default_rng(5))}
+    out = {}
+    for qname, lengths in queues.items():
+        for name, kw in modes.items():
+            get_backend("torch", device=str(device)).result_cache.clear()
+            ops.reset_launches()
+            if "hosts" in kw:
+                # the plane's workers count their launches: pack through
+                # SegmentedAdmission as pack_batches does, and read them
+                q = serve.SegmentedAdmission(hosts=2, device=str(device),
+                                             plane_opts=PLANE_TIMEOUTS)
+                try:
+                    for chunk in np.array_split(
+                            lengths, max(1, min(4, len(lengths) // 8))):
+                        q.admit(chunk)
+                    got = q.pack(8)
+                    workers = q._plane.stats()["worker_launches"]
+                finally:
+                    q.close()
+            else:
+                got = serve.pack_batches(lengths, 8, backend="torch",
+                                         device=str(device), **kw)
+                workers = None
+            launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+            want = serve.pack_batches(lengths, 8, backend="numpy", **kw)
+            same = (len(got) == len(want) and
+                    all(np.array_equal(g, w) for g, w in zip(got, want)))
+            check(same, f"[lm_serve] admission {name}, {qname}: torch "
+                  "batches differ from numpy")
+            seen = workers if workers is not None else launches
+            if device != "cpu" and qname == "1500 requests":
+                check(seen.get("ewah_decode", 0) > 0
+                      and seen.get("planfuse", 0) > 0,
+                      f"[lm_serve] admission {name}, {qname}: launches "
+                      f"{seen}, want ewah_decode and planfuse")
+            out[f"{name}, {qname}"] = {"identical": same,
+                                       "launches": launches,
+                                       "worker_launches": workers}
+            log(f"[lm_serve] admission {name}, {qname}: {len(got)} batches "
+                f"identical to numpy; launches {launches}"
+                + ("" if workers is None else f", in the workers {workers}"))
+    return out
+
+
+def lm_serve_phase(torch, device, reps):
+    """The model-serving launcher: tinyllama-1.1b at full width on the card
+    (the smoke config in a CPU rehearsal) behind histogram-aware admission
+    (see the module docstring, phase 12)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    card = device != "cpu"
+    # float32 products stay full float32 on the card (PyTorch's default,
+    # set here because (a) and (b) below compare float32 at 2e-3)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(LM_ARCH) if card else get_config(LM_ARCH).smoke()
+    argv = (LM_SERVE_ARGV if card else
+            [a for a in LM_SERVE_ARGV if a != "--no-smoke"])
+    argv = [*argv, "--device", str(device)]
+    out = {"arch": cfg.name, "argv": argv}
+
+    model = transformer.init_params(cfg, device=device)
+    out["params"] = transformer.n_params(model)
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    log(f"[lm_serve] {cfg.name} {'full width' if card else 'smoke'}: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{out['params']} parameters, {out['weight_bytes']} B")
+    if card:
+        check(out["params"] == LM_PARAMS and
+              out["weight_bytes"] == LM_WEIGHT_BYTES,
+              f"[lm_serve] {out['params']} parameters / "
+              f"{out['weight_bytes']} B, want {LM_PARAMS} / "
+              f"{LM_WEIGHT_BYTES}")
+        del model
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: the server's own entry point, counts read around it
+    ops.reset_launches()
+    res = lm_main(serve, argv)
+    out["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    tok_s = res["tokens"] / res["seconds"]
+    out.update(waste={str(k): v for k, v in res["waste"].items()},
+               requests=res["requests"], tokens=res["tokens"],
+               seconds=res["seconds"], tok_per_s=tok_s,
+               phases_unsynced_s=res["phases"])
+    check(res["requests"] == 64 and res["tokens"] == 64 * 16,
+          f"[lm_serve] served {res['requests']} requests, {res['tokens']} "
+          "tokens; want 64 and 1024")
+    check(res["waste"][True] < res["waste"][False],
+          "[lm_serve] histogram-aware packing wastes no less padding")
+    if card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        check(out["launches"].get("ewah_decode", 0) > 0
+              and out["launches"].get("planfuse", 0) > 0,
+              f"[lm_serve] packing launched {out['launches']}: want "
+              "ewah_decode and planfuse")
+    log(f"[lm_serve] padding waste {res['waste'][False]:.4f} arrival order, "
+        f"{res['waste'][True]:.4f} histogram-aware; {res['requests']} "
+        f"requests, {res['tokens']} tokens in {res['seconds']:.3f} s "
+        f"(host clock after a synchronise): {tok_s:.1f} tok/s; peak memory "
+        f"{out.get('peak_memory_bytes', 'not measured')} (B); packing "
+        f"launches {out['launches']}")
+
+    # the same run with --profile: spans synchronise, so the split is the
+    # device's; its trace stays in build/ (tens of MB)
+    trace_dir = ROOT / "build" / "lm_serve_trace"
+    res = lm_main(serve, [*argv, "--profile", str(trace_dir)])
+    out["phases_s"] = res["phases"]
+    out["profiled_tok_per_s"] = res["tokens"] / res["seconds"]
+
+    out["admission"] = lm_admission(torch, serve, ops, device)
+    if card:
+        out["float32"] = lm_correctness(
+            torch, replace(cfg, dtype="float32"), device)
+        torch.cuda.empty_cache()
+        model = transformer.init_params(cfg, device=device)
+        out["timing"] = lm_timing(torch, model, cfg, device, reps)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2128,6 +2486,9 @@ def run(device="cuda", scale=1.0, reps=20):
     report["build_primitives"] = prim = build_primitives_phase(
         torch, data, device, reps)
     totals.update(prim["launches"])
+    report["lm_serve"] = lm = lm_serve_phase(torch, device, reps)
+    for k, v in lm["launches"].items():
+        totals[k] += v
     report["launches"] = totals
     if device != "cpu":
         prof = profile_kernels(torch, T, data["dbgen"][3], device)

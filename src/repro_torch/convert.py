@@ -1,4 +1,4 @@
-"""Carry a reference index or writer across into this package.
+"""Carry a reference index, writer or model across into this package.
 
 :func:`index_from_reference` reads a ``BitmapIndex`` of the reference
 package (``repro.core``) by its attributes only, without importing that
@@ -7,11 +7,14 @@ permutations and spec.  :func:`writer_from_reference` does the same for a
 reference ``IndexWriter``: its sealed segments, open buffer and workload
 samples.  Both packages can then answer queries on one index, which is how
 the tests hold the torch backend against the JAX one.
+:func:`params_from_reference` turns the reference's model parameter tree
+into this package's ``Transformer`` ``state_dict``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .core import containers, encodings
 from .core.bitmap_index import BitmapIndex, ColumnIndex
@@ -116,3 +119,43 @@ def writer_from_reference(ref_writer, workload_stats=None) -> IndexWriter:
         buffer=buf, closed=ref_writer.closed, seal_rows=ref_writer.seal_rows,
         materialize=ref_writer.materialize, clock=ref_writer.clock,
         workload_stats=workload_stats)
+
+
+def _tensor(leaf, device, dtype):
+    """One parameter leaf as a tensor.  A JAX bfloat16 leaf reads as an
+    ``ml_dtypes`` array, which ``torch.from_numpy`` refuses; it goes
+    through float32, which holds every bfloat16 value exactly."""
+    a = np.asarray(leaf)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def _flatten(tree, prefix=""):
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from _flatten(leaf, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", leaf
+
+
+def params_from_reference(tree, cfg, device, dtype=None) -> dict:
+    """The reference's parameter tree (``repro.models.transformer.
+    init_params``; leaves as arrays) as this package's ``Transformer``
+    ``state_dict`` on ``device``: the leading layer axis of
+    ``tree["layers"]`` is unstacked into ``layers.{i}.*``.  ``dtype``
+    casts every leaf (default: each leaf's own type)."""
+    out = {}
+    for name, leaf in _flatten({k: v for k, v in tree.items()
+                                if k != "layers"}):
+        out[name] = _tensor(leaf, device, dtype)
+    for name, leaf in _flatten(tree["layers"]):
+        stacked = _tensor(leaf, device, dtype)
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name} stacks {stacked.shape[0]} "
+                             f"layers, the config has {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = stacked[i].clone()
+    return out

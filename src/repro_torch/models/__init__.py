@@ -1,2 +1,3 @@
-"""Model-side code of the port: so far the MoE dispatch-bitmap helpers
+"""Model-side code of the port: the dense transformer (``common``,
+``attention``, ``transformer``), the MoE dispatch-bitmap helpers
 (``moe``) and the dispatch-bitmap size study (``moe_dispatch``)."""

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels and ``TorchBackend`` on the card.
+"""The port's CUDA kernels, ``TorchBackend`` and the serving launcher on
+the card.
 
 Every test here is marked ``cuda`` and skips (with its reason) where there
 is no NVIDIA GPU or no nvcc; on a machine with one, run
@@ -923,3 +924,89 @@ def test_serve_plane_on_card_matches_numpy(dev):
         launches = plane.stats()["worker_launches"]
         assert launches.get("ewah_decode", 0) > 0
         assert launches.get("planfuse", 0) > 0
+
+
+LM_ARCHS = ["tinyllama-1.1b", "qwen2-7b"]
+
+
+def lm_pair(arch, dtype, dev):
+    """A smoke model on the CPU and the same weights on the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = replace(get_config(arch).smoke(), dtype=dtype)
+    cpu = transformer.init_params(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(5))
+    card = transformer.Transformer(cfg, device="meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 0.15)])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_smoke_on_card_matches_cpu(dev, arch, dtype, tol):
+    """forward, the fused prefill and greedy decode on the card against
+    the same port on the CPU; TF32 off, so float32 products are full
+    float32 and differ from the host's only in summation order (the
+    tolerance is tests/test_prefill.py's; bfloat16 takes the reference's
+    bf16 tests' 0.15).  Greedy tokens are identical in float32."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.prefill import prefill_with_cache
+    from repro_torch.train import serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, card = lm_pair(arch, dtype, dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 20)).astype(np.int32))
+    with torch.no_grad():
+        want, _ = transformer.forward(cpu, cfg, toks)
+        got, _ = transformer.forward(card, cfg, toks.to(dev))
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
+                               atol=tol)
+    out = {}
+    for name, m, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        logits, cache = prefill_with_cache(m, cfg, toks.to(d), 32)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        steps = [logits.float().cpu()]
+        toks_out = [tok.cpu()]
+        for t in range(20, 26):
+            logits, cache = transformer.decode_step(m, cfg, tok, cache, t)
+            steps.append(logits.float().cpu())
+            tok, _ = serve_step(m, tok, cache, t + 1, cfg=cfg)
+            toks_out.append(tok.cpu())
+        out[name] = (steps, torch.cat(toks_out, 1), cache["k"].float().cpu())
+    for g, w in zip(out["card"][0], out["cpu"][0]):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    torch.testing.assert_close(out["card"][2], out["cpu"][2], rtol=tol,
+                               atol=tol)
+    if dtype == "float32":
+        assert torch.equal(out["card"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("mode", [
+    {}, {"query_fanout": 2}, {"admission": "segmented"},
+    {"admission": "segmented", "compactor": True},
+    {"admission": "segmented", "hosts": 2,
+     "plane_opts": {"connect_timeout": 120.0, "reply_timeout": 600.0}}])
+def test_pack_batches_on_card_match_numpy(dev, mode):
+    """Admission packing on the card (the Eq(bin) plans through
+    ewah_decode and planfuse) gives numpy's batches in every topology."""
+    from repro_torch.launch import serve
+
+    from repro_torch.core.query import get_backend
+
+    lengths = serve.make_requests(600, np.random.default_rng(2))
+    # a cold result cache: the topologies share segments' contents
+    get_backend("torch", device=dev).result_cache.clear()
+    ops.reset_launches()
+    got = serve.pack_batches(lengths, 8, backend="torch", device=dev, **mode)
+    if "hosts" not in mode:
+        assert ops.LAUNCHES["ewah_decode"] > 0
+        assert ops.LAUNCHES["planfuse"] > 0
+    want = serve.pack_batches(lengths, 8, backend="numpy", **mode)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -20,6 +20,12 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 def test_modules_found():
     assert "repro_torch.core.ewah_stream" in MODULES
     assert "repro_torch.kernels.histmm" in MODULES
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            "repro_torch.configs.tinyllama_1_1b",
+            "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.transformer", "repro_torch.train.step",
+            "repro_torch.serve.prefill",
+            "repro_torch.launch.serve"} <= set(MODULES)
 
 
 @pytest.mark.parametrize("name", MODULES)
