@@ -119,7 +119,22 @@ reference package, and:
    the CPU, at ``rtol = atol = 2e-3``; and CUDA-event times of prefill at
    (8, 32) and (8, 112) and of one decode step at batch 8 with 128 cache
    slots beside their bounds, and a profiler window over one packed
-   batch (device busy, idle share, top kernels);
+   batch (device busy, idle share, top kernels); then the other families
+   (``LM_FAMILIES``), parameters and weight bytes counted on ``meta``:
+   olmoe-1b-7b (16 layers, d_model 2048, 64 experts top-8, bf16:
+   6,919,096,320 parameters) through ``main --no-smoke --arch`` with the
+   same defaults and again with ``--profile``, its prefills and decode
+   step timed beside the all-expert bound (every expert's weights read
+   each step, as the reference's capacity buffer does) and the
+   routed-only one (k/E_pad of the expert bytes), and one packed batch
+   profiled; qwen2-moe-a2.7b, mamba2-1.3b (one packed batch profiled),
+   zamba2-1.2b, qwen2-vl-7b and musicgen-medium one packed batch of 8
+   each; every one's packing must launch ``ewah_decode`` and
+   ``planfuse``; tok/s, seconds and peak memory of each; and the float32
+   gate above for each family at full width and the depth of
+   ``LM_F32_DEPTH`` (vlm and audio with frontend embeddings, vlm with
+   M-RoPE positions, MoE with capacity factor E / k, so that the prefill
+   drops no token);
 13. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
 14. prints the card line, the ``{"kernels": [...]}`` line and, last,
@@ -216,6 +231,27 @@ LM_DECODE = (8, 128)                 # (batch, cache slots)
 LM_TOL = 2e-3                        # tests/test_prefill.py's rtol = atol
 LM_SEED = 20
 BF16_OPS_PER_S = 989e12              # H100 SXM tensor cores, dense bf16
+# [lm_serve], the other families at their published widths: olmoe-1b-7b
+# (arXiv:2409.02060) served as tinyllama-1.1b is, at full depth, then one
+# packed batch of each other family's config; (parameters, weight bytes)
+LM_FAMILIES = {
+    "olmoe-1b-7b": (6_919_096_320, 13_842_386_944),
+    "qwen2-moe-a2.7b": (15_146_059_776, 30_298_017_792),
+    "mamba2-1.3b": (1_343_757_312, 2_687_533_056),
+    "zamba2-1.2b": (1_170_473_856, 2_340_962_304),
+    "qwen2-vl-7b": (7_615_616_512, 15_231_233_024),
+    "musicgen-medium": (1_818_379_776, 3_636_759_552),
+}
+LM_MOE_ARCH = "olmoe-1b-7b"
+LM_ONE_BATCH_ARGV = ["--no-smoke", "--requests", "8", "--batch", "8",
+                     "--gen-tokens", "16", "--max-len", "128"]
+# the float32 card-against-CPU gate at full width cuts depth to what the
+# host holds in float32 (olmoe at 16 layers would be 27.7 GB there); the
+# hybrid keeps 7 layers, so that one shared-block slot runs
+LM_F32_DEPTH = {"olmoe-1b-7b": 2, "qwen2-moe-a2.7b": 2, "mamba2-1.3b": 4,
+                "zamba2-1.2b": 7, "qwen2-vl-7b": 2, "musicgen-medium": 4}
+# one packed batch profiled: MoE and SSM serving (olmoe also timed)
+LM_PROFILED = ("olmoe-1b-7b", "mamba2-1.3b")
 
 
 
@@ -2114,25 +2150,44 @@ def lm_main(serve, argv):
 
 def lm_correctness(torch, cfg, device):
     """float32 at full width, TF32 off: (a) the fused prefill against a
-    token-by-token decode of the same 16-token prompt, batch 2; (b) the
-    card's prefill logits and 4 greedy tokens against the same port on the
-    CPU with the same weights."""
+    token-by-token decode of the same 16-token prompt, batch 2 (the audio
+    family's decode loop is fed the embeddings with their sinusoidal
+    positions, which its ``decode_step``, like the reference's, does not
+    add); (b) the card's prefill logits and 4 greedy tokens against the
+    same port on the CPU with the same weights, with 8 frontend
+    embeddings for vlm and audio and M-RoPE positions for vlm."""
     import numpy as np
 
     from repro_torch.models import transformer
     from repro_torch.serve.prefill import prefill_with_cache
     from repro_torch.train import serve_step
 
+    tag = f"[lm_serve] {cfg.name} ({cfg.n_layers} layers)"
     model = transformer.init_params(cfg, device=device)
-    prompt = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+    rng = np.random.default_rng(LM_SEED)
+    prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    front = {}
+    if cfg.frontend != "none":
+        front["patches"] = torch.from_numpy(
+            rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        pos = torch.arange(16, dtype=torch.int32).expand(2, 16)
+        front["mrope_positions"] = torch.stack([pos, pos // 2, pos % 5])
     max_len = 32
 
     def err(a, b):
         return float((a.float().cpu() - b.float().cpu()).abs().max())
 
+    def prompt_part(cache, k):
+        """The prompt's part of a cache entry: K/V up to 16 tokens; the
+        recurrent conv tail and state whole."""
+        return cache[k][:, :, :16] if k in ("k", "v") else cache[k]
+
     def generate(m, dev):
-        logits, cache = prefill_with_cache(m, cfg, prompt.to(dev), max_len)
+        logits, cache = prefill_with_cache(
+            m, cfg, prompt.to(dev), max_len,
+            **{k: v.to(dev) for k, v in front.items()})
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
         toks = [tok]
         for t in range(16, 19):
@@ -2140,21 +2195,29 @@ def lm_correctness(torch, cfg, device):
             toks.append(tok)
         return logits, torch.cat(toks, 1).cpu()
 
-    logits_p, cache_p = prefill_with_cache(model, cfg, prompt.to(device),
-                                           max_len)
-    cache = transformer.init_decode_cache(cfg, 2, max_len, device=device)
-    for t in range(16):
-        logits_d, cache = transformer.decode_step(
-            model, cfg, prompt[:, t:t + 1].to(device), cache, t)
-    out = {"prefill_vs_decode_logits_err": err(logits_p, logits_d),
+    with torch.no_grad():
+        logits_p, cache_p = prefill_with_cache(model, cfg, prompt.to(device),
+                                               max_len)
+        inputs = prompt.to(device)
+        if cfg.family == "audio":
+            pos = torch.arange(16, dtype=torch.int32, device=device).expand(
+                2, 16)
+            inputs = (model.embed[inputs.long()]
+                      + transformer._sinusoid(pos, cfg.d_model))
+        cache = transformer.init_decode_cache(cfg, 2, max_len, device=device)
+        for t in range(16):
+            logits_d, cache = transformer.decode_step(
+                model, cfg, inputs[:, t:t + 1], cache, t)
+    out = {"layers": cfg.n_layers,
+           "prefill_vs_decode_logits_err": err(logits_p, logits_d),
            "prefill_vs_decode_cache_err": max(
-               err(cache_p[k][:, :, :16], cache[k][:, :, :16])
-               for k in ("k", "v"))}
+               err(prompt_part(cache_p, k), prompt_part(cache, k))
+               for k in cache)}
     check(torch.allclose(logits_p, logits_d, rtol=LM_TOL, atol=LM_TOL)
-          and all(torch.allclose(cache_p[k][:, :, :16], cache[k][:, :, :16],
-                                 rtol=LM_TOL, atol=LM_TOL)
-                  for k in ("k", "v")),
-          f"[lm_serve] full-width prefill and decode loop disagree: {out}")
+          and all(torch.allclose(prompt_part(cache_p, k),
+                                 prompt_part(cache, k),
+                                 rtol=LM_TOL, atol=LM_TOL) for k in cache),
+          f"{tag} full-width prefill and decode loop disagree: {out}")
     del cache, cache_p
     logits_c, toks_c = generate(model, device)
     cpu = transformer.Transformer(cfg, device="meta")
@@ -2166,12 +2229,12 @@ def lm_correctness(torch, cfg, device):
     out["tokens_card"] = toks_c.tolist()
     out["tokens_cpu"] = toks_h.tolist()
     check(torch.equal(toks_c, toks_h),
-          f"[lm_serve] greedy tokens on the card {toks_c.tolist()} != CPU "
+          f"{tag} greedy tokens on the card {toks_c.tolist()} != CPU "
           f"{toks_h.tolist()}")
     check(torch.allclose(logits_c.cpu(), logits_h, rtol=LM_TOL, atol=LM_TOL),
-          f"[lm_serve] card and CPU logits disagree: "
+          f"{tag} card and CPU logits disagree: "
           f"{out['card_vs_cpu_logits_err']}")
-    log(f"[lm_serve] float32 full width, TF32 off (tolerance rtol = atol = "
+    log(f"{tag} float32 full width, TF32 off (tolerance rtol = atol = "
         f"{LM_TOL}): prefill vs decode loop max abs err logits "
         f"{out['prefill_vs_decode_logits_err']:.3g}, cache "
         f"{out['prefill_vs_decode_cache_err']:.3g}; card vs CPU logits "
@@ -2180,21 +2243,50 @@ def lm_correctness(torch, cfg, device):
     return out
 
 
-def lm_timing(torch, model, cfg, device, reps):
-    """Prefill and one decode step of the bf16 model beside their bounds,
-    and a profiler window over one packed batch."""
+def lm_work(model, cfg, b, s, cached=0):
+    """(bytes, operations, routed-only (bytes, operations)) of a prefill
+    of (b, s), or with ``cached`` slots a decode step (s = 1): every
+    weight but the embedding read once, the activations in and, for a
+    decode step, the K/V cache read; two operations a weight a token.  An
+    MoE layer reads and computes every expert's weights over its (E_pad,
+    cap) slot buffer, as the reference's design does; the routed-only
+    figures count k / E_pad of the expert weights, each token through its
+    k experts, instead (None for the other families)."""
+    from repro_torch.models import transformer
+
+    nonembed = transformer.n_params(model) - model.embed.numel()
+    item = model.embed.element_size()
+    kv_bytes = (2 * cfg.n_layers * b * cached * cfg.n_kv_heads
+                * cfg.head_dim * item)
+    act = b * s * cfg.d_model
+    if cfg.family != "moe":
+        return ((nonembed + act) * item + kv_bytes, 2 * nonembed * b * s,
+                None)
+    e = model.layers[0].ffn.w_gate.shape[0]
+    expert = cfg.n_layers * 3 * e * cfg.d_model * cfg.moe_d_ff
+    k = cfg.top_k
+    cap = max(8, min(int(cfg.moe_capacity_factor * s * k / cfg.n_experts
+                         + 0.5), s))
+    ops = (2 * (nonembed - expert) * b * s
+           + 2 * expert // e * b * e * cap)
+    routed = ((nonembed - expert + expert * k // e + act) * item + kv_bytes,
+              2 * (nonembed - expert + expert * k // e) * b * s)
+    return (nonembed + act) * item + kv_bytes, ops, routed
+
+
+def lm_timing(torch, model, cfg, device, reps, tag="[lm_serve]"):
+    """Prefill and one decode step of the bf16 model beside their bounds
+    (for MoE the routed-only bound beside it), and a profiler window over
+    one packed batch."""
     from repro_torch.models import transformer
     from repro_torch.serve.prefill import prefill_with_cache
     from repro_torch.train import serve_step
 
     gen = torch.Generator(device).manual_seed(LM_SEED)
-    nonembed = transformer.n_params(model) - model.embed.numel()
-    item = model.embed.element_size()
-    kv_bytes = (2 * cfg.n_layers * LM_DECODE[0] * LM_DECODE[1]
-                * cfg.n_kv_heads * cfg.head_dim * item)
     out = {}
 
-    def timed(name, fn, nbytes, nops):
+    def timed(name, fn, work):
+        nbytes, nops, routed = work
         med, lo, hi = step_ms(torch, fn, reps)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = nops / BF16_OPS_PER_S * 1e3
@@ -2203,26 +2295,44 @@ def lm_timing(torch, model, cfg, device, reps):
         out[name] = {"ms": med, "min_ms": lo, "max_ms": hi, "reps": reps,
                      "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
                      "ops": nops}
-        log(f"[lm_serve] {name}: median {med:.4f} ms (min {lo:.4f}, max "
-            f"{hi:.4f}, {reps} calls); bound {bound_ms:.4f} ms ({by}: "
-            f"{nbytes} B, {nops:.4g} ops), {bound_ms / med:.1%} of it")
+        line = (f"{tag} {name}: median {med:.4f} ms (min {lo:.4f}, max "
+                f"{hi:.4f}, {reps} calls); bound {bound_ms:.4f} ms ({by}: "
+                f"{nbytes} B, {nops:.4g} ops), {bound_ms / med:.1%} of it")
+        if routed is not None:
+            routed_ms = max(routed[0] / HBM_BYTES_PER_S,
+                            routed[1] / BF16_OPS_PER_S) * 1e3
+            out[name].update(routed_bytes=routed[0], routed_ops=routed[1],
+                             routed_bound_ms=routed_ms)
+            line += (f"; routed-only bound {routed_ms:.4f} ms ({routed[0]} "
+                     f"B, {routed[1]:.4g} ops: k/E_pad of the experts), "
+                     f"{routed_ms / med:.1%}")
+        log(line)
 
     for b, s in LM_PREFILLS:
         toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
                              device=device, dtype=torch.int32)
         timed(f"prefill {b}x{s}",
               lambda: prefill_with_cache(model, cfg, toks, LM_DECODE[1]),
-              (nonembed + b * s * cfg.d_model) * item,
-              2 * nonembed * b * s)
+              lm_work(model, cfg, b, s))
     b, slots = LM_DECODE
     toks = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
                          device=device, dtype=torch.int32)
     cache = transformer.init_decode_cache(cfg, b, slots, device=device)
     timed(f"decode step {b}x{slots}",
           lambda: serve_step(model, toks, cache, slots - 1, cfg=cfg),
-          (nonembed + b * cfg.d_model) * item + kv_bytes,
-          2 * nonembed * b)
+          lm_work(model, cfg, b, 1, slots))
+    del cache
+    out["profile_one_batch"] = lm_profile(torch, model, cfg, device, tag)
+    return out
 
+
+def lm_profile(torch, model, cfg, device, tag="[lm_serve]"):
+    """A profiler window over one packed batch: prefill (8, 32), then 15
+    decode steps."""
+    from repro_torch.serve.prefill import prefill_with_cache
+    from repro_torch.train import serve_step
+
+    gen = torch.Generator(device).manual_seed(LM_SEED)
     prompt = torch.randint(0, cfg.vocab_size, (8, 32), generator=gen,
                            device=device, dtype=torch.int32)
 
@@ -2234,18 +2344,17 @@ def lm_timing(torch, model, cfg, device, reps):
 
     one_batch()
     prof = device_profile(torch, one_batch)
-    check(prof is not None, "[lm_serve] torch.profiler recorded no device "
+    check(prof is not None, f"{tag} torch.profiler recorded no device "
           "time for one packed batch")
     launches = sum(c for _, _, c in prof["by_kernel"])
-    out["profile_one_batch"] = prof
-    log(f"[lm_serve] profile, one packed batch (prefill 8x32 + 15 decode "
+    log(f"{tag} profile, one packed batch (prefill 8x32 + 15 decode "
         f"steps): wall {prof['wall_ms']:.3f} ms, device busy "
         f"{prof['device_busy_ms']:.3f} ms, idle share "
         f"{prof['idle_share']:.1%}, {launches} device records "
         f"({launches / 16:.1f} a step)")
     for key, ms, count in prof["by_kernel"][:10]:
-        log(f"[lm_serve] {ms:10.4f} ms  x{count:<5d} {key[:100]}")
-    return out
+        log(f"{tag} {ms:10.4f} ms  x{count:<5d} {key[:100]}")
+    return prof
 
 
 def lm_admission(torch, serve, ops, device):
@@ -2395,6 +2504,112 @@ def lm_serve_phase(torch, device, reps):
         out["timing"] = lm_timing(torch, model, cfg, device, reps)
         del model
         torch.cuda.empty_cache()
+    out["families"] = fams = {}
+    for arch in LM_FAMILIES:
+        fams[arch] = lm_family(torch, serve, ops, arch, device, reps)
+        for k, v in fams[arch]["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    return out
+
+
+def lm_family(torch, serve, ops, arch, device, reps):
+    """One more config at its published widths (the smoke config in a CPU
+    rehearsal) through the server's entry point: olmoe-1b-7b with the
+    reference server's defaults, then with ``--profile`` for the split,
+    timed beside its bounds; every other config one packed batch of 8.
+    Parameters and weight bytes from the ``meta`` device, checked against
+    ``LM_FAMILIES``; on the card the packing must launch ``ewah_decode``
+    and ``planfuse``, and the float32 gate (``lm_correctness``) runs at
+    ``LM_F32_DEPTH``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    card = device != "cpu"
+    cfg = get_config(arch) if card else get_config(arch).smoke()
+    tag = f"[lm_serve] {arch}"
+    served = LM_SERVE_ARGV if arch == LM_MOE_ARCH else LM_ONE_BATCH_ARGV
+    argv = [a for a in served if card or a != "--no-smoke"]
+    argv = [*argv, "--arch", arch, "--device", str(device)]
+    shapes = transformer.Transformer(cfg, device="meta")
+    out = {"arch": arch, "argv": argv,
+           "params": transformer.n_params(shapes),
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in shapes.parameters())}
+    del shapes
+    log(f"{tag} {'full width' if card else 'smoke'}: {cfg.family}, "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}: "
+        f"{out['params']} parameters, {out['weight_bytes']} B")
+    if card:
+        check((out["params"], out["weight_bytes"]) == LM_FAMILIES[arch],
+              f"{tag} {out['params']} parameters / {out['weight_bytes']} B, "
+              f"want {LM_FAMILIES[arch]}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: the server's own entry point, counts read around it
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = lm_main(serve, argv)
+    out["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    n = int(argv[argv.index("--requests") + 1])
+    gen = int(argv[argv.index("--gen-tokens") + 1])
+    out.update(requests=res["requests"], tokens=res["tokens"],
+               seconds=res["seconds"], main_s=time.perf_counter() - t0,
+               tok_per_s=res["tokens"] / res["seconds"],
+               waste={str(k): v for k, v in res["waste"].items()},
+               phases_unsynced_s=res["phases"])
+    check(res["requests"] == n and res["tokens"] == n * gen,
+          f"{tag} served {res['requests']} requests, {res['tokens']} "
+          f"tokens; want {n} and {n * gen}")
+    if card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        check(out["launches"].get("ewah_decode", 0) > 0
+              and out["launches"].get("planfuse", 0) > 0,
+              f"{tag} packing launched {out['launches']}: want ewah_decode "
+              "and planfuse")
+    log(f"{tag} {res['requests']} requests, {res['tokens']} tokens in "
+        f"{res['seconds']:.3f} s (host clock after a synchronise): "
+        f"{out['tok_per_s']:.1f} tok/s; main {out['main_s']:.3f} s; peak "
+        f"memory {out.get('peak_memory_bytes', 'not measured')} (B); "
+        f"packing launches {out['launches']}")
+    steps = out["step_s"] = {"main": out["main_s"]}
+    t0 = time.perf_counter()
+    if arch == LM_MOE_ARCH:
+        res = lm_main(serve, [*argv, "--profile",
+                              str(ROOT / "build" / "lm_serve_trace")])
+        steps["profiled main"] = time.perf_counter() - t0
+        out["phases_s"] = res["phases"]
+        out["profiled_tok_per_s"] = res["tokens"] / res["seconds"]
+        log(f"{tag} synchronised split (s): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in res["phases"].items()))
+    if not card:
+        return out
+    if arch == LM_MOE_ARCH or arch in LM_PROFILED:
+        t0 = time.perf_counter()
+        model = transformer.init_params(cfg, device=device)
+        if arch == LM_MOE_ARCH:
+            out["timing"] = lm_timing(torch, model, cfg, device, reps, tag)
+        else:
+            out["profile_one_batch"] = lm_profile(torch, model, cfg, device,
+                                                  tag)
+        del model
+        torch.cuda.empty_cache()
+        steps["timing and profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # every expert's capacity the whole prompt (E / k), so that the
+    # prefill drops no MoE token: olmoe's 8, as tests/test_prefill.py
+    # sets; qwen2-moe's 15
+    f32 = replace(cfg, dtype="float32", n_layers=LM_F32_DEPTH[arch])
+    if cfg.family == "moe":
+        f32 = replace(f32, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+    out["float32"] = lm_correctness(torch, f32, device)
+    torch.cuda.empty_cache()
+    steps["float32 gate"] = time.perf_counter() - t0
+    log(f"{tag} wall clock of its steps (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()))
     return out
 
 

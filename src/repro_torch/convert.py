@@ -141,18 +141,30 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", leaf
 
 
+# leaves the model keeps in float32 whatever its type: the MoE router and
+# the Mamba2 mixer's A_log, D and dt_bias
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
+
+
 def params_from_reference(tree, cfg, device, dtype=None) -> dict:
     """The reference's parameter tree (``repro.models.transformer.
     init_params``; leaves as arrays) as this package's ``Transformer``
     ``state_dict`` on ``device``: the leading layer axis of
-    ``tree["layers"]`` is unstacked into ``layers.{i}.*``.  ``dtype``
-    casts every leaf (default: each leaf's own type)."""
+    ``tree["layers"]`` is unstacked into ``layers.{i}.*`` (the moe tree
+    with its ``shared`` experts and the mamba2 tree alike), and the
+    hybrid's ``shared_attn`` tree, which is not stacked, keeps its names.
+    ``dtype`` casts every leaf but ``FLOAT32_LEAVES`` (default: each
+    leaf's own type)."""
+
+    def leaf_dtype(name):
+        return None if name.rsplit(".", 1)[-1] in FLOAT32_LEAVES else dtype
+
     out = {}
     for name, leaf in _flatten({k: v for k, v in tree.items()
                                 if k != "layers"}):
-        out[name] = _tensor(leaf, device, dtype)
+        out[name] = _tensor(leaf, device, leaf_dtype(name))
     for name, leaf in _flatten(tree["layers"]):
-        stacked = _tensor(leaf, device, dtype)
+        stacked = _tensor(leaf, device, leaf_dtype(name))
         if stacked.shape[0] != cfg.n_layers:
             raise ValueError(f"layers.{name} stacks {stacked.shape[0]} "
                              f"layers, the config has {cfg.n_layers}")

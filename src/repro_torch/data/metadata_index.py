@@ -47,10 +47,31 @@ it needs ``backend="numpy"``.
 
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 
 from ..core import And, Eq, IndexSpec, IndexWriter
 from ..core.lifecycle import BackgroundCompactor
+from ..core.query import BACKENDS
+
+
+def _check_backend_opts(backend: str, backend_opts: dict) -> None:
+    """Raise ``TypeError`` for an option the backend's constructor does not
+    take.  The constructor is read, not called: the torch backend's
+    resolves its device, which raises where there is no card."""
+    cls = BACKENDS.get(backend)
+    if cls is None:
+        return  # the query itself names the registered backends
+    params = inspect.signature(cls).parameters
+    if any(p.kind is p.VAR_KEYWORD for p in params.values()):
+        return
+    for key in backend_opts:
+        if key not in params:
+            raise TypeError(
+                f"query() got an unexpected keyword argument {key!r}: "
+                f"the {backend!r} backend takes {sorted(params)}; "
+                "conditions go in where={column: value}")
 
 
 class MetadataIndex:
@@ -248,9 +269,12 @@ class MetadataIndex:
 
         ``backend`` and the backend's options are keyword-only;
         conditions travel in the explicit ``where=`` dict so column names
-        can never collide with option names (a condition passed as a bare
-        keyword reaches the backend, which rejects it).
+        can never collide with option names.  A keyword that the backend's
+        constructor does not take (a condition passed bare, such as
+        ``domain=2``, or ``_backend=``) raises ``TypeError``, with or
+        without conditions.
         """
+        _check_backend_opts(backend, backend_opts)
         if not where:
             return np.asarray([], dtype=np.int64), 0
         unknown = sorted(set(where) - set(self.COLS))

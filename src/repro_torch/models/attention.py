@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import apply_rope, dense_init
+from .common import apply_mrope, apply_rope, dense_init
 
 __all__ = ["NEG_INF", "Attention", "attention", "decode_attention"]
 
@@ -60,7 +60,7 @@ def _scaled(q, hd):
     return q * float(torch.tensor(hd ** -0.5, dtype=q.dtype))
 
 
-def _project_qkv(p, cfg, x, positions):
+def _project_qkv(p, cfg, x, positions, mrope_positions=None):
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
@@ -69,7 +69,12 @@ def _project_qkv(p, cfg, x, positions):
     q = q.reshape(b, s, cfg.n_heads, hd)
     k = k.reshape(b, s, cfg.n_kv_heads, hd)
     v = v.reshape(b, s, cfg.n_kv_heads, hd)
-    if cfg.rope:
+    if mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+        k = apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                        cfg.rope_theta)
+    elif cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -149,14 +154,16 @@ def _dense_attn(q, k, v, n_kv_heads, window, q_offset=0):
     return out.reshape(b, sq, h, hd)
 
 
-def attention(p, cfg, x, positions, impl="blockwise", return_kv=False):
+def attention(p, cfg, x, positions, mrope_positions=None, impl="blockwise",
+              return_kv=False):
     """Prefill attention. x: (b, s, d) -> (b, s, d); dense when
     ``impl == "dense"`` or ``s <= 1024``, as in the reference.
+    ``mrope_positions`` (3, b, s) rotates by M-RoPE instead of RoPE.
 
     return_kv=True additionally returns the (k, v) projections so prefill
     can populate the decode cache in one pass (serve.prefill)."""
     b, s, d = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_positions)
     window = cfg.sliding_window or None
     if impl == "dense" or s <= 1024:
         o = _dense_attn(q, k, v, cfg.n_kv_heads, window)
@@ -168,11 +175,14 @@ def attention(p, cfg, x, positions, impl="blockwise", return_kv=False):
     return out
 
 
-def decode_attention(p, cfg, x, cache_k, cache_v, cache_len: int):
+def decode_attention(p, cfg, x, cache_k, cache_v, cache_len: int,
+                     mrope_positions=None):
     """Single-token decode with a KV cache.
 
     x: (b, 1, d); cache_k/v: (b, S, kvh, hd); cache_len: the current
     length, the same for every row (the new token is written at it).
+    Any ``mrope_positions`` is replaced by ``cache_len`` in all three
+    components, as in the reference.
     Writes the new K/V into ``cache_k`` / ``cache_v`` in place and returns
     (out, cache_k, cache_v).
     """
@@ -182,7 +192,9 @@ def decode_attention(p, cfg, x, cache_k, cache_v, cache_len: int):
         raise ValueError(f"cache_len {cache_len} outside a cache of {S}")
     positions = torch.full((b, 1), cache_len, dtype=torch.int32,
                            device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    if mrope_positions is not None:
+        mrope_positions = positions.expand(3, b, 1)
+    q, k, v = _project_qkv(p, cfg, x, positions, mrope_positions)
     cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
     cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
     g = cfg.n_heads // cfg.n_kv_heads

@@ -10,16 +10,16 @@ target device.
 
 The reference's logical-axis sharding (``ShardingCtx``, ``lshard``,
 ``logical_to_spec``) is not here: the port serves on one card with no
-mesh (``launch/mesh.py`` and ``dist/sharding.py`` are later work), and
-``apply_mrope`` comes with the vlm family.
+mesh (``launch/mesh.py`` and ``dist/sharding.py`` are later work).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["apply_rope", "causal_mask", "dense_init", "embed_init",
-           "resolve_device", "rms_norm", "rope_freqs", "silu", "swiglu"]
+__all__ = ["apply_mrope", "apply_rope", "causal_mask", "dense_init",
+           "embed_init", "resolve_device", "rms_norm", "rope_freqs", "silu",
+           "softplus", "swiglu"]
 
 
 def resolve_device(device) -> torch.device:
@@ -79,6 +79,11 @@ def silu(x):
     return x * torch.sigmoid(x)
 
 
+def softplus(x):
+    """``log(exp(x) + 1)`` with no linear cut-off (``jax.nn.softplus``)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
 def swiglu(x, w_gate, w_up, w_down):
     h = silu(x @ w_gate) * (x @ w_up)
     return h @ w_down
@@ -100,6 +105,29 @@ def apply_rope(x, positions, theta: float = 1e4):
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
     angles = positions[..., None].float() * freqs  # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, positions, sections=(16, 24, 24), theta: float = 1e4):
+    """Qwen2-VL multimodal RoPE.
+
+    positions: (3, ..., seq) temporal / height / width position ids.  The
+    rotary half-dim is split into ``sections`` (sum = head_dim / 2); each
+    section rotates by its own position component.
+    """
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    angles = positions.float()[..., None] * freqs  # (3, ..., seq, hd/2)
+    angles = torch.movedim(angles, 0, -1)  # (..., seq, hd/2, 3)
+    # per rotary frequency, the position component (t/h/w) that drives it
+    index = sec[:, None].expand(*angles.shape[:-1], 1)
+    angles = torch.gather(angles, -1, index)[..., 0]  # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)

@@ -39,6 +39,8 @@ def serve_step(params, tokens, cache, cache_len, *, cfg, temperature=0.0,
 def prefill_step(params, batch, *, cfg):
     """Forward over the prompt ``batch["inputs"]``, returning the last
     position's logits for sampling the first generated token."""
-    logits, _ = transformer.forward(params, cfg, batch["inputs"],
-                                    positions=batch.get("positions"))
+    logits, _ = transformer.forward(
+        params, cfg, batch["inputs"], positions=batch.get("positions"),
+        mrope_positions=batch.get("mrope_positions"),
+        patches=batch.get("patches"))
     return logits[:, -1]

@@ -926,7 +926,13 @@ def test_serve_plane_on_card_matches_numpy(dev):
         assert launches.get("planfuse", 0) > 0
 
 
-LM_ARCHS = ["tinyllama-1.1b", "qwen2-7b"]
+# the dense family in float32 and bfloat16; one config of each other
+# family in float32 (in bfloat16 a rounding unit can flip an MoE route)
+LM_CASES = [(a, d, t) for a in ("tinyllama-1.1b", "qwen2-7b")
+            for d, t in (("float32", 2e-3), ("bfloat16", 0.15))] + [
+    (a, "float32", 2e-3) for a in ("olmoe-1b-7b", "qwen2-moe-a2.7b",
+                                   "mamba2-1.3b", "zamba2-1.2b",
+                                   "qwen2-vl-7b", "musicgen-medium")]
 
 
 def lm_pair(arch, dtype, dev):
@@ -945,14 +951,28 @@ def lm_pair(arch, dtype, dev):
     return cfg, cpu, card
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 2e-3), ("bfloat16", 0.15)])
-@pytest.mark.parametrize("arch", LM_ARCHS)
+def frontend_inputs(cfg, b, s):
+    """vlm / audio frontend embeddings over 8 positions, and vlm M-RoPE
+    positions whose components differ (numpy, seeded)."""
+    r = np.random.default_rng(4)
+    kw = {}
+    if cfg.frontend != "none":
+        kw["patches"] = torch.from_numpy(r.standard_normal(
+            (b, 8, cfg.d_model)).astype(np.float32))
+    if cfg.family == "vlm":
+        pos = torch.arange(s, dtype=torch.int32).expand(b, s)
+        kw["mrope_positions"] = torch.stack([pos, pos // 2, pos % 5])
+    return kw
+
+
+@pytest.mark.parametrize("arch,dtype,tol", LM_CASES)
 def test_lm_smoke_on_card_matches_cpu(dev, arch, dtype, tol):
-    """forward, the fused prefill and greedy decode on the card against
-    the same port on the CPU; TF32 off, so float32 products are full
-    float32 and differ from the host's only in summation order (the
-    tolerance is tests/test_prefill.py's; bfloat16 takes the reference's
-    bf16 tests' 0.15).  Greedy tokens are identical in float32."""
+    """forward (with the vlm / audio frontend inputs), the fused prefill
+    and greedy decode on the card against the same port on the CPU; TF32
+    off, so float32 products are full float32 and differ from the host's
+    only in summation order (the tolerance is tests/test_prefill.py's;
+    bfloat16 takes the reference's bf16 tests' 0.15).  Greedy tokens are
+    identical in float32."""
     from repro_torch.models import transformer
     from repro_torch.serve.prefill import prefill_with_cache
     from repro_torch.train import serve_step
@@ -961,11 +981,14 @@ def test_lm_smoke_on_card_matches_cpu(dev, arch, dtype, tol):
     cfg, cpu, card = lm_pair(arch, dtype, dev)
     toks = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (3, 20)).astype(np.int32))
+    kw = frontend_inputs(cfg, 3, 20)
     with torch.no_grad():
-        want, _ = transformer.forward(cpu, cfg, toks)
-        got, _ = transformer.forward(card, cfg, toks.to(dev))
+        want, want_aux = transformer.forward(cpu, cfg, toks, **kw)
+        got, aux = transformer.forward(card, cfg, toks.to(dev),
+                                       **{k: v.to(dev) for k, v in kw.items()})
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=tol,
                                atol=tol)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=tol, atol=tol)
     out = {}
     for name, m, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
         logits, cache = prefill_with_cache(m, cfg, toks.to(d), 32)
@@ -977,13 +1000,44 @@ def test_lm_smoke_on_card_matches_cpu(dev, arch, dtype, tol):
             steps.append(logits.float().cpu())
             tok, _ = serve_step(m, tok, cache, t + 1, cfg=cfg)
             toks_out.append(tok.cpu())
-        out[name] = (steps, torch.cat(toks_out, 1), cache["k"].float().cpu())
+        out[name] = (steps, torch.cat(toks_out, 1),
+                     {k: v.float().cpu() for k, v in cache.items()})
     for g, w in zip(out["card"][0], out["cpu"][0]):
         torch.testing.assert_close(g, w, rtol=tol, atol=tol)
-    torch.testing.assert_close(out["card"][2], out["cpu"][2], rtol=tol,
-                               atol=tol)
+    for k, w in out["cpu"][2].items():
+        torch.testing.assert_close(out["card"][2][k], w, rtol=tol, atol=tol,
+                                   msg=k)
     if dtype == "float32":
         assert torch.equal(out["card"][1], out["cpu"][1])
+
+
+@pytest.mark.parametrize("dispatch", ["gather", "scatter"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-moe-a2.7b"])
+def test_moe_combine_is_deterministic_on_card(dev, arch, dispatch):
+    """The bf16 MoE FFN gives the same bits twice on the card: the
+    combine gathers each token's slots and adds them in expert order (no
+    atomics), and agrees with the CPU at the bf16 tolerance."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = replace(get_config(arch).smoke(), dtype="bfloat16")
+    cpu = moe.MoE(cfg, torch.bfloat16, "cpu",
+                  torch.Generator().manual_seed(6))
+    card = moe.MoE(cfg, torch.bfloat16, "meta")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()},
+                         assign=True)
+    x = torch.from_numpy(0.3 * np.random.default_rng(7).standard_normal(
+        (8, 64, cfg.d_model))).to(torch.bfloat16)
+    with torch.no_grad():
+        runs = [moe.moe_ffn(card, cfg, x.to(dev), dispatch=dispatch)
+                for _ in range(2)]
+        want, want_aux = moe.moe_ffn(cpu, cfg, x, dispatch=dispatch)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    torch.testing.assert_close(runs[0][0].float().cpu(), want.float(),
+                               rtol=0.15, atol=0.15)
 
 
 @pytest.mark.parametrize("mode", [

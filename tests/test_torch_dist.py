@@ -619,6 +619,34 @@ def test_metadata_index_matches_reference(topology):
         ref.close()
 
 
+@pytest.mark.parametrize("opts", [{"backend": "numpy"},
+                                  {"backend": "torch", "device": "cpu"}],
+                         ids=["numpy", "torch-cpu"])
+def test_metadata_index_query_legacy_shims_removed(opts):
+    """The reference's ``test_metadata_index_query_legacy_shims_removed``
+    on the port: a condition as a bare keyword and the backend as
+    ``_backend=`` raise TypeError, with or without ``where`` (and without
+    a card: the torch backend's constructor is read, not called)."""
+    import warnings
+
+    mi = TMeta()
+    mi.add_batch(metadata_batches(1, 96, seed=3)[0])
+    for bad in ({"domain": 2}, {"_backend": "numpy"}):
+        with pytest.raises(TypeError, match=next(iter(bad))):
+            mi.query(**opts, **bad)
+        with pytest.raises(TypeError, match=next(iter(bad))):
+            mi.query(where={"domain": 2}, **opts, **bad)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # the supported spelling is silent
+        rows, _ = mi.query(where={"domain": 2}, **opts)
+    assert len(rows) > 0
+    want = RMeta()
+    want.add_batch(metadata_batches(1, 96, seed=3)[0])
+    np.testing.assert_array_equal(
+        rows, want.query(where={"domain": 2}, backend="numpy")[0])
+    assert len(mi.query(**opts)[0]) == 0
+
+
 def test_metadata_index_defaults_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs on it")

@@ -11,7 +11,8 @@
 * ``SegmentedAdmission``'s admit / pack / retire / close sequence gives
   the reference's packs and retire counts;
 * the port's ``main`` prints the reference's padding-waste figures and
-  request and token counts; ``--no-smoke`` serves the published widths
+  request and token counts, for every model family's smoke config
+  (``--arch``); ``--no-smoke`` serves every config's published widths
   (traced on the ``meta`` device, so nothing is allocated), ``--mesh`` is
   not an option, and without a card the default device raises.
 
@@ -44,6 +45,10 @@ MODES = {
 # (requests, seed, batch): a launch-sized queue, the server's default,
 # and one that seals five admission segments (seal_rows 256)
 QUEUES = [(24, 0, 8), (64, 0, 8), (1500, 5, 16)]
+# every config the reference defines, one a family first
+ARCHS = ["tinyllama-1.1b", "olmoe-1b-7b", "mamba2-1.3b", "zamba2-1.2b",
+         "qwen2-vl-7b", "musicgen-medium", "qwen2-moe-a2.7b", "qwen2-7b",
+         "qwen2.5-14b", "phi3-medium-14b"]
 
 
 def bounded(fn, timeout=240.0):
@@ -228,6 +233,29 @@ def test_main_no_smoke_serves_the_published_widths():
         "--requests", "16", "--batch", "8", "--gen-tokens", "3"])
     assert got["requests"] == 16 and got["tokens"] == 48
     assert "served 16 requests, 48 tokens" in out
+
+
+@pytest.mark.parametrize("arch", ARCHS[1:7])
+def test_main_serves_every_family(arch):
+    """The smoke config of each family other than dense, through ``main``
+    on the CPU: the reference's padding figures and counts."""
+    argv = ["--arch", arch, "--requests", "8", "--batch", "4",
+            "--gen-tokens", "2"]
+    want = reference_main_figures(argv, 8, 4, 2)
+    text, got = run_main(serve.main, ["--device", "cpu", *argv])
+    assert figures(text) == want
+    assert got["requests"] == 8 and got["tokens"] == 16
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_main_no_smoke_traces_every_config(arch):
+    """Every config at its published widths on the ``meta`` device: the
+    shapes of prefill and decode, allocating nothing."""
+    out, got = run_main(serve.main, [
+        "--no-smoke", "--arch", arch, "--device", "meta", "--query-backend",
+        "numpy", "--requests", "8", "--batch", "8", "--gen-tokens", "2"])
+    assert got["requests"] == 8 and got["tokens"] == 16
+    assert "served 8 requests, 16 tokens" in out
 
 
 def test_main_has_no_mesh_option():
