@@ -135,9 +135,31 @@ reference package, and:
    ``LM_F32_DEPTH`` (vlm and audio with frontend embeddings, vlm with
    M-RoPE positions, MoE with capacity factor E / k, so that the prefill
    drops no token);
-13. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+13. model-training phase (``[lm_train]``): tinyllama-1.1b at its
+   published widths and depth through the trainer's own entry point,
+   ``repro_torch.launch.train.main --no-smoke`` (``LM_TRAIN_ARGV``: 6
+   steps of batch 8 x 128 tokens, remat on, the closing save of the
+   reference's {"params", "opt"} tree, about 11.0 GB, under ``build/``):
+   the first step's and the median later step's milliseconds (host clock;
+   the loss read synchronises) beside the step's bound worked out from the
+   config, tokens/s, peak device memory, every step's loss and grad norm
+   (finite), the checkpoint's bytes and seconds, and the launches of the
+   closing curation query, which must include ``ewah_decode`` and
+   ``planfuse`` and whose row count must equal a numpy ``MetadataIndex``
+   fed the same metadata; then ``main --resume`` for 2 more steps, which
+   must print ``resumed from step 6``; the checkpoint directory is removed
+   after (the phase fails if the disk cannot hold two steps); one more
+   full-width step split with CUDA events into the forward and backward
+   pass and the AdamW update, and profiled (device busy, idle share,
+   device records, top kernels); at smoke size on the card, a corrupted
+   newest leaf resumes from the older step
+   and ``--simulate-failure-at`` exits 42 (a subprocess); and the float32
+   gate: the full-width config at 2 layers, one ``train_step`` of 2 x 64
+   tokens on the card against the same step on the CPU from the same
+   weights and moments, TF32 off, at ``LM_TRAIN_TOL``;
+14. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-14. prints the card line, the ``{"kernels": [...]}`` line and, last,
+15. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -252,6 +274,21 @@ LM_F32_DEPTH = {"olmoe-1b-7b": 2, "qwen2-moe-a2.7b": 2, "mamba2-1.3b": 4,
                 "zamba2-1.2b": 7, "qwen2-vl-7b": 2, "musicgen-medium": 4}
 # one packed batch profiled: MoE and SSM serving (olmoe also timed)
 LM_PROFILED = ("olmoe-1b-7b", "mamba2-1.3b")
+# [lm_train]: tinyllama-1.1b trained at its published widths and depth
+# through launch.train.main: 6 steps of 8 x 128 tokens (at batch 8 the
+# metadata index seals a 32-row word from the fourth step on, so the
+# closing curation query reaches the card's kernels), the closing save,
+# then 2 more steps resumed from it
+LM_TRAIN_ARGV = ["--no-smoke", "--batch", "8", "--seq", "128", "--steps",
+                 "6", "--log-every", "1", "--ckpt-every", "1000"]
+LM_TRAIN_MORE = 2
+# the float32 card-against-CPU gate: full width, (layers, batch, seq); lr
+# 1e-2 from random moments at step 3, so that a gradient's last places move
+# an update by ~1e-8 while a wrong sign, bias correction or weight decay
+# moves it by ~1e-4; the card and the host sum in other orders:
+# loss and grad norm at rtol 1e-4, parameters at atol 1e-5, m at 1e-6
+LM_TRAIN_F32 = (2, 2, 64)
+LM_TRAIN_TOL = {"loss": 1e-4, "params": 1e-5, "m": 1e-6}
 
 
 
@@ -1665,33 +1702,56 @@ def time_moe_route(torch, device, reps, profiled=True):
     return per_shape
 
 
-def one_kernel_a_call(torch, what, fn, kernel, calls=4, windows=5):
+PROFILER_WARMUP = 256  # device records a window starts with, then ignores
+
+
+def one_kernel_a_call(torch, what, fn, kernel, calls=4, windows=12):
     """Profile windows of ``calls`` calls of ``fn``.  Fail unless in every
     window the host made exactly one kernel launch a call and no memset or
     copy, and every device record is a kernel whose name contains
     ``kernel``; and unless a window hands over exactly ``calls`` device
-    records.  The profiler has handed over none of a short window's device
-    records in some runs, so a window with fewer is profiled again, up to
-    ``windows`` in all."""
+    records.  The profiler can lose the first device records of each
+    window: none in a fresh process, up to ~40 later in this script (a
+    window of 200 small additions handed over 163, then every later
+    record), which empties a window of 4 short calls.  So a window first runs ``PROFILER_WARMUP``
+    additions to a scratch tensor, synchronises and pauses 50 ms, and then
+    marks the calls with ``record_function``; the counts take only the host
+    events inside the mark and the device records from 25 ms before it on
+    (the additions ended 50 ms before it).  A window with fewer records is
+    profiled again, after a pause, up to ``windows`` in all."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()  # warm: first calls may allocate (a zeroed output, a scratch)
+    scratch = torch.zeros(256, device="cuda")
     torch.cuda.synchronize()
     short = []
     for _ in range(windows):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
+            for _ in range(PROFILER_WARMUP):
+                scratch.add_(1.0)
             torch.cuda.synchronize()
-        host = [e.name for e in prof.events()
+            time.sleep(0.05)
+            with record_function("one_kernel_a_call"):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        events = prof.events()
+        mark = next(e.time_range for e in events
+                    if e.name == "one_kernel_a_call"
+                    and e.device_type == DeviceType.CPU)
+        host = [e.name for e in events
                 if e.device_type == DeviceType.CPU
                 and e.name.startswith("cuda")
-                and any(w in e.name for w in ("Launch", "Memset", "Memcpy"))]
-        device = [e.name for e in prof.events()
+                and any(w in e.name for w in ("Launch", "Memset", "Memcpy"))
+                and mark.start <= e.time_range.start <= mark.end]
+        # the mark's own device-side annotation is not device activity
+        device = [e.name for e in events
                   if e.device_type == DeviceType.CUDA
-                  and e.name != "Activity Buffer Request"]
+                  and e.name not in ("Activity Buffer Request",
+                                     "one_kernel_a_call")
+                  and e.time_range.start >= mark.start - 25_000]
         check(len(host) == calls and all("Launch" in n for n in host),
               f"{what}: one kernel launch a call expected over {calls} "
               f"calls, the host made {host}")
@@ -1700,6 +1760,7 @@ def one_kernel_a_call(torch, what, fn, kernel, calls=4, windows=5):
         if len(device) == calls:
             break
         short.append(len(device))
+        time.sleep(0.2)
     check(len(device) == calls, f"{what}: no window of {windows} handed over "
           f"one device record a call (records a window: {short})")
     log(f"[profile] {what}: one device kernel ({kernel}) a call over {calls} "
@@ -2613,6 +2674,365 @@ def lm_family(torch, serve, ops, arch, device, reps):
     return out
 
 
+def train_main(train, argv):
+    """``train.main(argv)`` with its printed lines logged as [lm_train]:
+    (metrics, lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        metrics = train.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"[lm_train] main: {line}")
+    return metrics, lines
+
+
+def printed(lines, prefix):
+    """The numbers in the first printed line that starts with ``prefix``."""
+    import re
+
+    line = next((x for x in lines if x.startswith(prefix)), None)
+    check(line is not None, f"[lm_train] main printed no {prefix!r} line")
+    return [float(x) for x in re.findall(r"[-+]?\d+(?:\.\d+)?", line)]
+
+
+def lm_train_bound(model, cfg, tokens, b, s):
+    """The least time of one training step of ``tokens`` tokens, from the
+    config: (bound_ms, bound_by, parts).  Operations: 6 per matrix-product
+    weight a token (forward and backward; the embedding gather is no
+    product), plus the attention products (QK^T and PV, 3x for the
+    backward), plus, with ``remat_policy="full"``, a second forward of the
+    products (the "dots" policy keeps their outputs).  Bytes: each input
+    read once and each output written once: the parameters (read and
+    written), the float32 moments m and v (read and written) and the
+    tokens.  ``parts`` also carries the optimizer update's traffic alone
+    (parameters and gradients in the model's type, m and v), and the
+    figure with every weight counted as a product."""
+    n = sum(p.numel() for p in model.parameters())
+    item = model.embed.element_size()
+    products = n - model.embed.numel()
+    attn = 3 * cfg.n_layers * 2 * 2 * b * s * s * cfg.n_heads * cfg.head_dim
+    recompute = 2 * products * tokens if cfg.remat_policy == "full" else 0
+    ops = 6 * products * tokens + attn + recompute
+    nbytes = 2 * (n * item + 8 * n) + 2 * 4 * tokens
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    update_bytes = n * (2 * item + item + 2 * 8)
+    parts = {"ops": ops, "ops_ms": ops_ms, "bytes": nbytes,
+             "bytes_ms": bytes_ms, "params": n, "product_weights": products,
+             "update_bytes": update_bytes,
+             "update_ms": update_bytes / HBM_BYTES_PER_S * 1e3,
+             "all_weights_full_remat_ops": 8 * n * tokens,
+             "all_weights_full_remat_ms": 8 * n * tokens / BF16_OPS_PER_S
+             * 1e3}
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"), parts
+
+
+def lm_train_gate(torch, cfg, device):
+    """float32 at full width, depth ``LM_TRAIN_F32[0]``, TF32 off: one
+    ``train_step`` on the card against the same step on the CPU from the
+    same weights, moments and batch."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.models import transformer
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.train import train_step
+
+    layers, b, s = LM_TRAIN_F32
+    cfg = replace(cfg, dtype="float32", n_layers=layers, remat=True)
+    tag = f"[lm_train] float32 gate ({layers} layers, {b} x {s})"
+    card = transformer.init_params(cfg, device=device)
+    host = transformer.Transformer(cfg, device="meta")
+    host.load_state_dict({k: v.to("cpu", copy=True)
+                          for k, v in card.state_dict().items()}, assign=True)
+    opt_host = init_opt_state(host)
+    g = torch.Generator().manual_seed(LM_SEED)
+    for key, scale in (("m", 1e-3), ("v", 1e-2)):
+        for t in opt_host[key].values():
+            t.copy_(scale * (0.5 + torch.rand(t.shape, generator=g)))
+    opt_host["step"].fill_(3)
+    opt_card = {k: ({n: t.to(device) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(device))
+                for k, v in opt_host.items()}
+    rng = np.random.default_rng(LM_SEED)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))
+                                 .astype(np.int32))
+             for k in ("inputs", "labels")}
+    oc = OptConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    _, new_card, m_card = train_step(
+        card, opt_card, {k: v.to(device) for k, v in batch.items()},
+        cfg=cfg, opt_cfg=oc)
+    _, new_host, m_host = train_step(host, opt_host, batch, cfg=cfg,
+                                     opt_cfg=oc)
+    host_sd, card_sd = host.state_dict(), card.state_dict()
+    out = {"layers": layers, "batch": b, "seq": s, "tol": LM_TRAIN_TOL,
+           "loss_card": float(m_card["loss"]),
+           "loss_cpu": float(m_host["loss"]),
+           "grad_norm_card": float(m_card["grad_norm"]),
+           "grad_norm_cpu": float(m_host["grad_norm"]),
+           "params_err": max(float((card_sd[k].cpu() - v).abs().max())
+                             for k, v in host_sd.items()),
+           "m_err": max(float((new_card["m"][k].cpu() - v).abs().max())
+                        for k, v in new_host["m"].items())}
+    rel = lambda a, w: abs(a - w) / abs(w)
+    ok = (rel(out["loss_card"], out["loss_cpu"]) <= LM_TRAIN_TOL["loss"]
+          and rel(out["grad_norm_card"], out["grad_norm_cpu"])
+          <= LM_TRAIN_TOL["loss"]
+          and out["params_err"] <= LM_TRAIN_TOL["params"]
+          and out["m_err"] <= LM_TRAIN_TOL["m"])
+    check(ok, f"{tag}: card and CPU disagree: {out}")
+    log(f"{tag}: loss card {out['loss_card']:.7f} / CPU "
+        f"{out['loss_cpu']:.7f}, grad norm {out['grad_norm_card']:.7f} / "
+        f"{out['grad_norm_cpu']:.7f} (rtol {LM_TRAIN_TOL['loss']}); "
+        f"updated parameters max abs err {out['params_err']:.3g} (atol "
+        f"{LM_TRAIN_TOL['params']}), m {out['m_err']:.3g} (atol "
+        f"{LM_TRAIN_TOL['m']})")
+    return out
+
+
+def lm_train_drills(torch, train, device):
+    """At smoke size on ``device``: a corrupted newest leaf resumes from
+    the older step; ``--simulate-failure-at`` exits 42 in a subprocess."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.dist import checkpoint as ckpt
+
+    root = ROOT / "build" / "lm_train_drills"
+    shutil.rmtree(root, ignore_errors=True)
+    d = str(root / "corrupt")
+    base = ["--device", str(device), "--seq", "32", "--ckpt-every", "2",
+            "--ckpt-dir"]
+    train_main(train, ["--steps", "4", *base, d])
+    victim = root / "corrupt" / "step_00000004" / "leaf_00000.npy"
+    np.save(victim, np.zeros_like(np.load(victim)))
+    metrics, lines = train_main(train, ["--steps", "6", "--resume", *base, d])
+    check("[train] resumed from step 2" in lines
+          and [m["step"] for m in metrics] == [2, 3, 4, 5],
+          "[lm_train] a corrupted step 4 did not resume from step 2")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps", "5",
+         "--simulate-failure-at", "3", *base, str(root / "crash")],
+        env=env, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 42
+          and "[train] simulating failure at step 3" in proc.stdout,
+          f"[lm_train] --simulate-failure-at 3 exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    out = {"corrupt_resumed_from": 2, "crash_exit_code": proc.returncode,
+           "crash_s": time.perf_counter() - t0,
+           "crash_steps_saved": ckpt.available_steps(str(root / "crash"))}
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[lm_train] smoke drills on {device}: corrupted step 4 resumed "
+        f"from step 2; --simulate-failure-at 3 exited 42 in "
+        f"{out['crash_s']:.1f} s with steps {out['crash_steps_saved']} "
+        "saved")
+    return out
+
+
+def lm_train_profile(torch, cfg, device, b, s, reps=3):
+    """One full-width step of ``b`` x ``s`` tokens (remat on, a fresh model
+    seeded 0): CUDA-event times of the forward and
+    backward pass (``train.step._grads``) and of the AdamW update
+    (``optim.apply_updates``), medians of ``reps``, and a profiler window
+    over one whole ``train_step``."""
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.train import step as tstep
+
+    model = transformer.init_params(cfg, device=device)
+    state = {"opt": init_opt_state(model)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             TokenPipeline(cfg.vocab_size, b, s).next_batch()[0].items()}
+    oc = OptConfig(lr=3e-3, total_steps=10, warmup_steps=2)
+
+    def step():
+        _, state["opt"], _ = tstep.train_step(model, state["opt"], batch,
+                                              cfg=cfg, opt_cfg=oc)
+
+    step()
+    torch.cuda.synchronize()
+    split = {"forward_backward": [], "update": []}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        grads, _, _ = tstep._grads(model, cfg, batch)
+        ev[1].record()
+        _, state["opt"], _ = apply_updates(oc, model, grads, state["opt"])
+        ev[2].record()
+        torch.cuda.synchronize()
+        split["forward_backward"].append(ev[0].elapsed_time(ev[1]))
+        split["update"].append(ev[1].elapsed_time(ev[2]))
+        del grads
+    out = {k: statistics.median(v) for k, v in split.items()}
+    prof = device_profile(torch, step)
+    check(prof is not None, "[lm_train] torch.profiler recorded no device "
+          "time for one training step")
+    out["profile_one_step"] = prof
+    records = sum(c for _, _, c in prof["by_kernel"])
+    log(f"[lm_train] one step split (CUDA events, median of {reps}): "
+        f"forward and backward {out['forward_backward']:.3f} ms, AdamW "
+        f"update {out['update']:.3f} ms; profile of one step: wall "
+        f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f}"
+        f" ms, idle share {prof['idle_share']:.1%}, {records} device "
+        "records")
+    for key, ms, count in prof["by_kernel"][:10]:
+        log(f"[lm_train] {ms:10.4f} ms  x{count:<5d} {key[:100]}")
+    del model, state
+    return out
+
+
+def lm_train_phase(torch, device):
+    """The training launcher: tinyllama-1.1b at full width and depth on the
+    card (the smoke config in a CPU rehearsal), checkpoint and resume,
+    fault drills and the float32 gate (see the module docstring, phase
+    13)."""
+    import shutil
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.metadata_index import MetadataIndex
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    card = device != "cpu"
+    cfg = get_config(LM_ARCH) if card else get_config(LM_ARCH).smoke()
+    argv = [a for a in LM_TRAIN_ARGV if card or a != "--no-smoke"]
+    ckpt_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    argv = [*argv, "--device", str(device), "--ckpt-dir", str(ckpt_dir)]
+    b = int(argv[argv.index("--batch") + 1])
+    s = int(argv[argv.index("--seq") + 1])
+    steps = int(argv[argv.index("--steps") + 1])
+    shapes = transformer.Transformer(cfg, device="meta")
+    n = transformer.n_params(shapes)
+    step_bytes = sum(p.numel() * (p.element_size() + 8)
+                     for p in shapes.parameters()) + 4
+    free = shutil.disk_usage(ckpt_dir).free
+    out = {"arch": cfg.name, "argv": argv, "params": n,
+           "checkpoint_step_bytes": step_bytes, "disk_free_bytes": free}
+    log(f"[lm_train] {cfg.name} {'full width' if card else 'smoke'}: "
+        f"{cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.dtype}, remat "
+        f"{cfg.remat_policy}: {n} parameters; a checkpoint step "
+        f"{step_bytes} B, {free} B free on the disk")
+    if card:
+        check(n == LM_PARAMS, f"[lm_train] {n} parameters, want {LM_PARAMS}")
+    check(free >= 2 * step_bytes, f"[lm_train] {free} B free, a resumed "
+          f"run holds two steps of {step_bytes} B")
+    bound_ms, bound_by, parts = lm_train_bound(shapes, cfg, b * s, b, s)
+    del shapes
+    if card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    # the main path: the trainer's own entry point, counts read around it
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    metrics, lines = train_main(train, argv)
+    out["main_s"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if card:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    check([m["step"] for m in metrics] == list(range(steps)),
+          f"[lm_train] ran steps {[m['step'] for m in metrics]}")
+    losses = [m["loss"] for m in metrics]
+    gnorms = [m["grad_norm"] for m in metrics]
+    check(bool(np.isfinite(losses + gnorms).all()),
+          f"[lm_train] losses {losses}, grad norms {gnorms}")
+    dts = [m["dt"] * 1e3 for m in metrics]
+    later = statistics.median(dts[1:])
+    saved = printed(lines, "[train] saved step")
+    done = printed(lines, "[train] done in")
+    out.update(losses=losses, grad_norms=gnorms, step_ms=dts,
+               first_step_ms=dts[0], median_step_ms=later,
+               tokens_per_step=b * s, tok_per_s=b * s / later * 1e3,
+               bound_ms=bound_ms, bound_by=bound_by, bound_parts=parts,
+               save_bytes=int(saved[1]), save_s=saved[2],
+               curation={"index_words": int(done[1]), "rows": int(done[3]),
+                         "scanned_words": int(done[4])})
+    check(out["save_bytes"] == step_bytes,
+          f"[lm_train] saved {out['save_bytes']} B, want {step_bytes}")
+    # the curation query's rows: a numpy index fed the same metadata
+    pipe = TokenPipeline(cfg.vocab_size, b, s)
+    want = MetadataIndex()
+    for _ in range(steps):
+        want.add_batch(pipe.next_batch()[1])
+    rows, _ = want.query(where={"domain": 3}, backend="numpy")
+    check(len(rows) == out["curation"]["rows"],
+          f"[lm_train] curation query gave {out['curation']['rows']} rows, "
+          f"numpy {len(rows)}")
+    if card:
+        check(out["launches"].get("ewah_decode", 0) > 0
+              and out["launches"].get("planfuse", 0) > 0,
+              f"[lm_train] the curation query launched {out['launches']}: "
+              "want ewah_decode and planfuse")
+    log(f"[lm_train] {steps} steps of {b} x {s} tokens: first step "
+        f"{dts[0]:.1f} ms, median of the rest {later:.2f} ms (host clock, "
+        f"the loss read synchronises): {out['tok_per_s']:.0f} tok/s; bound "
+        f"{bound_ms:.3f} ms ({bound_by}: {parts['ops']:.4g} ops, "
+        f"{parts['bytes']} B), {bound_ms / later:.1%} of it; the update's "
+        f"traffic alone {parts['update_bytes']} B, {parts['update_ms']:.3f} "
+        f"ms; every weight as a product with a full remat forward "
+        f"{parts['all_weights_full_remat_ops']:.4g} ops, "
+        f"{parts['all_weights_full_remat_ms']:.3f} ms")
+    log(f"[lm_train] each step (ms, share of the {bound_ms:.3f} ms bound): "
+        + ", ".join(f"{ms:.1f} ({bound_ms / ms:.2%})" for ms in dts))
+    log(f"[lm_train] losses {[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in gnorms]}; peak memory "
+        f"{out.get('peak_memory_bytes', 'not measured')} (B); checkpoint "
+        f"{out['save_bytes']} B in {out['save_s']} s; curation query "
+        f"{out['curation']}, launches {out['launches']} (numpy: "
+        f"{len(rows)} rows)")
+
+    # resume from the closing save and train LM_TRAIN_MORE more steps
+    more = steps + LM_TRAIN_MORE
+    t0 = time.perf_counter()
+    resumed, lines = train_main(
+        train, [*argv[:argv.index("--steps") + 1], str(more),
+                *argv[argv.index("--steps") + 2:], "--resume"])
+    out["resume_main_s"] = time.perf_counter() - t0
+    check(f"[train] resumed from step {steps}" in lines
+          and [m["step"] for m in resumed] == list(range(steps, more)),
+          f"[lm_train] the resumed run printed {lines[:3]}")
+    restored = printed(lines, "[train] restored")
+    check(bool(np.isfinite([m["loss"] for m in resumed]).all()),
+          "[lm_train] the resumed steps' losses are not finite")
+    out["resume"] = {"restore_bytes": int(restored[0]),
+                     "restore_s": restored[1],
+                     "losses": [m["loss"] for m in resumed],
+                     "step_ms": [m["dt"] * 1e3 for m in resumed]}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"[lm_train] resumed from step {steps}: restore {int(restored[0])} "
+        f"B in {restored[1]} s, {LM_TRAIN_MORE} more steps, losses "
+        f"{[round(x, 4) for x in out['resume']['losses']]}; main "
+        f"{out['resume_main_s']:.1f} s; checkpoint directory removed")
+    if card:
+        torch.cuda.empty_cache()
+        out["split"] = lm_train_profile(torch, replace(cfg, remat=True),
+                                        device, b, s)
+        torch.cuda.empty_cache()
+        out["drills"] = lm_train_drills(torch, train, device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out["float32"] = lm_train_gate(torch, cfg, device)
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
@@ -2702,6 +3122,9 @@ def run(device="cuda", scale=1.0, reps=20):
         torch, data, device, reps)
     totals.update(prim["launches"])
     report["lm_serve"] = lm = lm_serve_phase(torch, device, reps)
+    for k, v in lm["launches"].items():
+        totals[k] += v
+    report["lm_train"] = lm = lm_train_phase(torch, device)
     for k, v in lm["launches"].items():
         totals[k] += v
     report["launches"] = totals

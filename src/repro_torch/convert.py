@@ -8,7 +8,13 @@ reference ``IndexWriter``: its sealed segments, open buffer and workload
 samples.  Both packages can then answer queries on one index, which is how
 the tests hold the torch backend against the JAX one.
 :func:`params_from_reference` turns the reference's model parameter tree
-into this package's ``Transformer`` ``state_dict``.
+into this package's ``Transformer`` ``state_dict``, and
+:func:`params_to_reference` turns a ``Transformer`` back into the
+reference's tree (names, stacked layer axis, shapes and types);
+:func:`opt_state_from_reference` and :func:`opt_state_to_reference` do the
+same for the optimizer state (``m``, ``v``, ``step`` and, with error
+feedback, ``ef``).  The checkpoint writes the reference's tree, so that a
+step written by either package restores in the other.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from .core.bitmap_index import BitmapIndex, ColumnIndex
 from .core.lifecycle import IndexWriter
 from .core.segment import Segment
 from .core.strategies import IndexSpec
+from .optim.adamw import named_params
 from .workload.stats import WorkloadStats
 
 
@@ -122,9 +129,12 @@ def writer_from_reference(ref_writer, workload_stats=None) -> IndexWriter:
 
 
 def _tensor(leaf, device, dtype):
-    """One parameter leaf as a tensor.  A JAX bfloat16 leaf reads as an
-    ``ml_dtypes`` array, which ``torch.from_numpy`` refuses; it goes
-    through float32, which holds every bfloat16 value exactly."""
+    """One parameter leaf (a tensor or an array) as a tensor.  A JAX
+    bfloat16 leaf reads as an ``ml_dtypes`` array, which
+    ``torch.from_numpy`` refuses; it goes through float32, which holds
+    every bfloat16 value exactly."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to(device=device, dtype=dtype or leaf.dtype)
     a = np.asarray(leaf)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -171,3 +181,113 @@ def params_from_reference(tree, cfg, device, dtype=None) -> dict:
         for i in range(cfg.n_layers):
             out[f"layers.{i}.{name}"] = stacked[i].clone()
     return out
+
+
+def _layer_name(name):
+    """(i, rest) of a per-layer name ``layers.{i}.{rest}``, else None."""
+    parts = name.split(".", 2)
+    if len(parts) == 3 and parts[0] == "layers" and parts[1].isdigit():
+        return int(parts[1]), parts[2]
+    return None
+
+
+def _nest(flat: dict) -> dict:
+    """``{"a.b": x}`` -> ``{"a": {"b": x}}``."""
+    out = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return out
+
+
+def _stacked(named: dict, device) -> dict:
+    """Tensors keyed by ``state_dict`` names as the reference's tree: each
+    ``layers.{i}.{rest}`` family stacked on a new leading axis (copied
+    into one tensor on ``device``; default the tensors' own), the other
+    leaves copied."""
+    flat, layers = {}, {}
+    for name, t in named.items():
+        hit = _layer_name(name)
+        if hit is None:
+            flat[name] = t.detach().to(device or t.device, copy=True)
+        else:
+            layers.setdefault(hit[1], {})[hit[0]] = t
+    for rest, by_layer in layers.items():
+        first = by_layer[0]
+        out = torch.empty((len(by_layer), *first.shape), dtype=first.dtype,
+                          device=device or first.device)
+        for i in range(len(by_layer)):
+            out[i].copy_(by_layer[i].detach())
+        flat[f"layers.{rest}"] = out
+    return _nest(flat)
+
+
+def params_to_reference(params, device=None) -> dict:
+    """The reference's parameter tree (``repro.models.transformer.
+    init_params``' names and shapes, each leaf in the parameter's type) of
+    a ``Transformer`` or its ``state_dict``: the per-layer leaves
+    ``layers.{i}.*`` restacked on a leading layer axis, the others nested
+    by name.  Leaves are fresh tensors on ``device`` (default: the
+    parameters' own; ``"meta"`` gives shapes only), to be read with
+    ``.numpy()`` on the CPU (numpy has no bfloat16: a bfloat16 leaf goes
+    through ``.float()`` first, which is exact)."""
+    return _stacked(named_params(params), device)
+
+
+def _check_param_shaped(opt_state, params):
+    shapes = {n: p.shape for n, p in named_params(params).items()}
+    for key in ("m", "v", "ef"):
+        for name, t in opt_state.get(key, {}).items():
+            if t.shape != shapes[name]:
+                raise ValueError(
+                    f"{key}[{name!r}] has shape {tuple(t.shape)}, the "
+                    f"parameter {tuple(shapes[name])}: flat ZeRO-1 moments "
+                    "belong to a mesh, which the port does not run yet")
+
+
+def opt_state_to_reference(opt_state, params, device=None) -> dict:
+    """The reference's optimizer state tree (``repro.optim.
+    init_opt_state`` with ``zero_pad=1``) of this package's: ``m`` and
+    ``v`` (and ``ef``) as :func:`params_to_reference` trees, ``step``
+    copied.  The moments must be param-shaped (one card, no ZeRO-1)."""
+    _check_param_shaped(opt_state, params)
+    out = {"m": _stacked(opt_state["m"], device),
+           "v": _stacked(opt_state["v"], device),
+           "step": opt_state["step"].detach().to(
+               device or opt_state["step"].device, copy=True)}
+    if "ef" in opt_state:
+        out["ef"] = _stacked(opt_state["ef"], device)
+    return out
+
+
+def opt_state_from_reference(tree, params, device) -> dict:
+    """This package's optimizer state (moments keyed by ``state_dict``
+    names, float32 on ``device``) of the reference's param-shaped
+    ``init_opt_state`` tree for the same model ``params``: the inverse of
+    :func:`opt_state_to_reference`."""
+    n_layers = 1 + max((hit[0] for hit in map(_layer_name,
+                                               named_params(params)) if hit),
+                       default=-1)
+
+    def moments(sub):
+        out = {}
+        for name, leaf in _flatten(sub):
+            t = _tensor(leaf, device, torch.float32)
+            if not name.startswith("layers."):
+                out[name] = t.clone()
+                continue
+            if t.shape[0] != n_layers:
+                raise ValueError(f"{name} stacks {t.shape[0]} layers, the "
+                                 f"model has {n_layers}")
+            for i in range(n_layers):
+                out[f"layers.{i}.{name[len('layers.'):]}"] = t[i].clone()
+        return out
+
+    state = {key: moments(tree[key]) for key in ("m", "v", "ef")
+             if key in tree}
+    state["step"] = _tensor(tree["step"], device, torch.int32)
+    _check_param_shaped(state, params)
+    return state

@@ -1,11 +1,13 @@
-"""Distributed layer of the bitmap index: query fan-out over row-range
-index shards (query_fanout), the cross-process serve plane (serve_plane)
-and its sharded checkpoints (checkpoint).
+"""Distributed layer: query fan-out over row-range index shards
+(query_fanout), the cross-process serve plane (serve_plane), and
+checkpoints (checkpoint): the training state's pytrees and the serve
+plane's sharded segments.
 
 Submodules resolve lazily (PEP 562): serve-plane *worker* processes run
 ``python -m repro_torch.dist.serve_plane`` through this package and load
 only what a request needs.  The reference's ``sharding`` module (mesh
-placement of model parameters) comes with the port's LM stack.
+placement of model parameters) is later work: the port trains and serves
+on one card.
 """
 
 _SUBMODULES = ("checkpoint", "query_fanout", "serve_plane")

@@ -1,9 +1,32 @@
-"""Sharded serve-plane checkpoints: the step/pointer scheme and the
-per-segment two-phase commit.
+"""Atomic, fault-tolerant checkpointing: pytrees and sharded segments.
 
-A copy of the segment half of the reference's ``repro.dist.checkpoint``,
-on the same on-disk format, so that a step written by either package
-restores in the other:
+A copy of the reference's ``repro.dist.checkpoint`` on the same on-disk
+format, so that a step written by either package restores in the other.
+
+Pytree layout: one directory per step, made visible atomically:
+
+    <dir>/step_00000042/
+        metadata.json        {"step", "extra", "leaves": [{dtype, shape, crc}]}
+        leaf_00000.npy       the tree's leaves in jax.tree.flatten order:
+        leaf_00001.npy       dict keys sorted (repro_torch.pytree)
+        ...
+    <dir>/LATEST             committed-step pointer, flipped atomically
+
+The trees are nested dicts of tensors (or arrays).  The training launcher
+saves the reference's tree (``convert.params_to_reference``,
+``convert.opt_state_to_reference``: each layer leaf stacked on a leading
+axis), so the files are the reference's.  bfloat16, which numpy cannot
+hold, is stored as a uint16 raw view (``tensor.view(torch.int16)``) with
+``"bfloat16"`` recorded, and the CRC32 covers the stored bytes.  A save
+copies every leaf to host memory before it returns (the training step
+updates the parameters in place next), and writes into a ``tmp.*``
+sibling directory that ``os.replace`` moves into place, so readers never
+observe a partial step.  ``restore`` walks steps newest-first and falls
+back to the next older step when validation fails, so a write torn by a
+crash (or bit rot on one leaf) costs one checkpoint, not the run.
+
+The sharded serve-plane checkpoints reuse the same step/pointer scheme
+but write *per segment*:
 
     <dir>/step_00000042/
         segment_00000/meta.json    id span, row count, encodings, CRC
@@ -22,12 +45,8 @@ checkpoint.  Arrays load with ``allow_pickle=False``.
 
 **Retention is pointer-gated** (crash-safe under concurrent writers): old
 step directories are retired only *after* the new step's ``LATEST`` pointer
-flip is fsynced, and never at or above the pointer's target.
-
-The pytree half of the reference module (``save``, ``save_async``,
-``wait_pending``, ``restore`` of parameter trees, with bfloat16 leaves
-viewed through jax) comes with the port's LM stack; it is not part of
-this copy.
+flip is fsynced, and never at or above the pointer's target.  torch
+imports lazily: the segment half of this module is numpy-only.
 """
 
 from __future__ import annotations
@@ -36,13 +55,27 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import zlib
 
 import numpy as np
 
+from ..pytree import tree_leaves, tree_unflatten
+
 _STEP_PREFIX = "step_"
+_META = "metadata.json"
 _LATEST = "LATEST"
 _MANIFEST = "manifest.json"
+
+# dtypes numpy can't hold: name -> storage dtype (the restore view resolves
+# through torch lazily so worker processes stay torch-free)
+_RAW = {"bfloat16": np.uint16}
+
+
+def _raw_view(name: str):
+    import torch
+
+    return {"bfloat16": torch.bfloat16}[name]
 
 
 class CorruptCheckpoint(RuntimeError):
@@ -129,6 +162,201 @@ def _prune(directory: str, keep: int) -> None:
         keep = keep - 1  # the committed step occupies one retention slot
     for s in steps[: max(0, len(steps) - max(keep, 0))]:
         shutil.rmtree(_step_dir(directory, s), ignore_errors=True)
+
+
+def _crc(stored: np.ndarray) -> int:
+    """CRC32 of an array's bytes in C order (``stored.tobytes()``)."""
+    return zlib.crc32(np.ascontiguousarray(stored).reshape(-1).view(np.uint8))
+
+
+def _host(x) -> tuple[str, np.ndarray]:
+    """(dtype name, stored array) of one leaf, copied to host memory: a
+    bfloat16 leaf as its uint16 raw view."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        t = x.detach().to("cpu", memory_format=torch.contiguous_format,
+                          copy=True)
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", t.view(torch.int16).numpy().view(np.uint16)
+        a = t.numpy()
+    else:
+        a = np.array(x, copy=True)
+    name = a.dtype.name
+    return name, a.view(_RAW[name]) if name in _RAW else a
+
+
+def _snapshot(tree) -> list[tuple[str, np.ndarray]]:
+    """Copy leaves to host memory NOW: the caller may update the tree's
+    tensors in place right after (the train step does).  On the CPU a
+    tensor's ``.numpy()`` shares its memory, so every leaf is copied."""
+    return [_host(x) for x in tree_leaves(tree)]
+
+
+def _write(directory: str, step: int, leaves, extra, keep) -> int:
+    """Write one step; returns the stored leaves' bytes."""
+    os.makedirs(directory, exist_ok=True)
+    final = _step_dir(directory, step)
+    tmp = tempfile.mkdtemp(prefix="tmp.", dir=directory)
+    nbytes = 0
+    try:
+        meta = {"step": int(step), "extra": extra if extra is not None else {},
+                "leaves": []}
+        for i, (name, stored) in enumerate(leaves):
+            np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), stored,
+                    allow_pickle=False)
+            meta["leaves"].append({
+                "dtype": name,
+                "shape": list(stored.shape),
+                "crc": _crc(stored),
+            })
+            nbytes += stored.nbytes
+        with open(os.path.join(tmp, _META), "w") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    # commit order is load-bearing: the step becomes the pointer's target
+    # (fsynced) BEFORE any retention runs, so a crash in between leaves
+    # every committed step on disk
+    flip_latest(directory, step)
+    if keep is not None:
+        _prune(directory, keep)
+    return nbytes
+
+
+def save(directory: str, step: int, tree, extra=None,
+         keep: int | None = None) -> int:
+    """Synchronous atomic save of a tree of tensors or arrays; ``extra`` is
+    a small JSON-able dict (data pipeline position, RNG state, ...);
+    ``keep`` retains only the N newest steps after a successful write.
+    Returns the bytes of the leaves written."""
+    return _write(directory, step, _snapshot(tree), extra, keep)
+
+
+_pending: list[threading.Thread] = []  # guarded-by: _pending_lock
+_pending_lock = threading.Lock()
+
+
+def save_async(directory: str, step: int, tree, extra=None,
+               keep: int | None = None) -> threading.Thread:
+    """Snapshot to host synchronously, write in a background thread.
+
+    The device-to-host copy happens before this returns, so the caller may
+    update the tree's tensors in place at once.  Returns the writer thread
+    (already started); ``wait_pending()`` joins all outstanding ones.
+    """
+    leaves = _snapshot(tree)
+    t = threading.Thread(target=_write, args=(directory, step, leaves, extra,
+                                              keep),
+                         name=f"ckpt-save-{step}", daemon=True)
+    with _pending_lock:
+        _pending.append(t)
+    t.start()
+    return t
+
+
+def wait_pending() -> None:
+    """Block until every save_async writer has finished."""
+    with _pending_lock:
+        threads, _pending[:] = list(_pending), []
+    for t in threads:
+        t.join()
+
+
+def _load_step(path: str, n_leaves: int):
+    """(leaves as (dtype name, stored array), step, extra) of one step
+    directory, validated; raises CorruptCheckpoint."""
+    meta_path = os.path.join(path, _META)
+    if not os.path.exists(meta_path):
+        raise CorruptCheckpoint(f"{path}: missing {_META}")
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        raise CorruptCheckpoint(f"{path}: unreadable metadata ({e})")
+    if len(meta.get("leaves", [])) != n_leaves:
+        raise CorruptCheckpoint(
+            f"{path}: {len(meta.get('leaves', []))} leaves on disk, "
+            f"restore target has {n_leaves}")
+    leaves = []
+    try:  # valid JSON with missing/mangled keys is corruption too
+        for i, rec in enumerate(meta["leaves"]):
+            fp = os.path.join(path, f"leaf_{i:05d}.npy")
+            try:
+                stored = np.load(fp, allow_pickle=False)
+            except Exception as e:  # noqa: BLE001 — any unreadable leaf is corruption
+                raise CorruptCheckpoint(f"{fp}: {e}")
+            name = rec["dtype"]
+            want = np.dtype(_RAW[name] if name in _RAW else name)
+            if stored.dtype != want or list(stored.shape) != list(rec["shape"]):
+                raise CorruptCheckpoint(
+                    f"{fp}: got {stored.dtype}{stored.shape}, "
+                    f"recorded {name}{tuple(rec['shape'])}")
+            if _crc(stored) != rec["crc"]:
+                raise CorruptCheckpoint(f"{fp}: CRC mismatch")
+            leaves.append((name, stored))
+        return leaves, int(meta["step"]), meta.get("extra", {})
+    except (KeyError, TypeError, ValueError) as e:
+        raise CorruptCheckpoint(f"{path}: malformed metadata ({e!r})")
+
+
+def _tensor(name: str, stored: np.ndarray):
+    import torch
+
+    if name in _RAW:  # the 16-bit raw view, through int16 for torch
+        return torch.from_numpy(stored.view(np.int16)).view(_raw_view(name))
+    return torch.from_numpy(stored)
+
+
+def restore(directory: str, tree_like, device=None):
+    """Load the newest valid checkpoint.
+
+    ``tree_like`` supplies the tree structure and the expected leaf
+    *shapes* (leaf values are ignored, so ``meta`` tensors do; a saved leaf
+    whose shape disagrees with its ``tree_like`` counterpart is rejected
+    with a clear error, e.g. a checkpoint written before a state-layout
+    change such as param-shaped against flat ZeRO-1 moments).  The leaves
+    come back as tensors on ``device`` (None: the CUDA device, which
+    raises where there is none).  Returns ``(tree, step, extra)``; raises
+    FileNotFoundError when no step exists or none validates.
+    """
+    from ..models.common import resolve_device
+
+    device = resolve_device(device)
+    steps = available_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no checkpoints under {directory!r}")
+    leaves_like = tree_leaves(tree_like)
+    failures = []
+    for step in reversed(steps):
+        try:
+            raw, saved_step, extra = _load_step(
+                _step_dir(directory, step), len(leaves_like))
+        except CorruptCheckpoint as e:
+            failures.append(str(e))
+            continue
+        for i, ((_, x), like) in enumerate(zip(raw, leaves_like)):
+            want = tuple(like.shape if hasattr(like, "shape")
+                         else np.shape(like))
+            if tuple(x.shape) != want:
+                raise ValueError(
+                    f"checkpoint step {saved_step} leaf {i} has shape "
+                    f"{tuple(x.shape)} but the current state expects {want} "
+                    "— the saved state layout predates the running code "
+                    "(e.g. param-shaped optimizer moments from before "
+                    "flat ZeRO-1); restart fresh or migrate the "
+                    "checkpoint")
+        leaves = [_tensor(name, x).to(device) for name, x in raw]
+        return tree_unflatten(tree_like, leaves), saved_step, extra
+    raise FileNotFoundError(
+        f"all checkpoints under {directory!r} failed validation: "
+        + "; ".join(failures))
 
 
 # ---------------------------------------------------------------------------

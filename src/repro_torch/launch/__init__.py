@@ -1,1 +1,2 @@
-"""Launchers: the model server (``python -m repro_torch.launch.serve``)."""
+"""Launchers: the model server (``python -m repro_torch.launch.serve``) and
+the trainer (``python -m repro_torch.launch.train``)."""

@@ -14,7 +14,8 @@ type).  ``mamba2_block`` pads a sequence that is not a multiple of
 ``ssm_chunk`` with zeros at the end and drops the padded outputs: the scan
 is causal, so the first ``s`` outputs and (with ``dt = 0`` on the padding)
 the final state are those of the unpadded sequence.  The reference asserts
-instead; the padding lets a served prompt of any length prefill.
+instead; the padding lets a served prompt of any length prefill.  The backward
+pass flows through the padding (``F.pad``) and the chunk loop.
 """
 
 from __future__ import annotations
@@ -104,7 +105,11 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
     lj = csum[:, :, None, :, :]
     mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
                                  device=x.device))
-    L = torch.where(mask[None, None, :, :, None], torch.exp(li - lj), 0.0)
+    # masked before the exp (the reference masks after it: the same values,
+    # but exp of a long chunk's i < j entries overflows and 0 * inf makes
+    # its gradient NaN)
+    L = torch.exp(torch.where(mask[None, None, :, :, None], li - lj,
+                              float("-inf")))
     cBg = cB.reshape(b, nc, chunk, g, 1, N)
     cCg = cC.reshape(b, nc, chunk, g, 1, N)
     scores = torch.einsum("bnigrN,bnjgrN->bnijg", cCg, cBg)

@@ -16,7 +16,17 @@ The config selects each layer's mixer and FFN: attention + SwiGLU
 vlm takes precomputed patch embeddings (``patches``, written over the
 first positions) and M-RoPE positions; audio (rope off) adds sinusoidal
 positions in ``forward`` and prefill, and, as in the reference,
-``decode_step`` adds none.  No remat: that is training.
+``decode_step`` adds none.
+
+Remat (``cfg.remat``), as the reference's ``jax.checkpoint`` around each
+scanned layer: with autograd on, each layer's block runs under
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``.
+``remat_policy="full"`` saves nothing inside the block and recomputes it
+in the backward pass; ``"dots"`` (the reference's
+``dots_with_no_batch_dims_saveable``) saves the outputs of the 2-D matrix
+products (``aten.mm`` / ``aten.addmm``) and recomputes the rest.  The
+hybrid's shared block is not wrapped, as in the reference.  Remat changes
+no value, and it does nothing when grad is off.
 
 The serving functions (``decode_step`` here, ``serve.prefill``,
 ``train.step.serve_step``) run without autograd and update the decode
@@ -26,6 +36,7 @@ cache in place.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 from torch import nn
@@ -214,6 +225,24 @@ def _block(lp, x, positions, mrope_positions, cfg):
     return x + swiglu(h, lp.ffn.w_gate, lp.ffn.w_up, lp.ffn.w_down), 0.0
 
 
+def _rematted(cfg):
+    """``_block``, under activation checkpointing when ``cfg.remat`` asks
+    for it and autograd is recording."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _block
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {"use_reentrant": False}
+    if cfg.remat_policy != "full":
+        # "dots" keeps the 2-D products' outputs (a product of a 3-D
+        # activation and a weight reaches autograd as one)
+        saved = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   saved)
+    return partial(checkpoint, _block, **kw)
+
+
 def _shared_ffn(sp, x):
     h = rms_norm(x, sp.ln2)
     return x + swiglu(h, sp.ffn.w_gate, sp.ffn.w_up, sp.ffn.w_down)
@@ -239,9 +268,10 @@ def forward(params, cfg, inputs, positions=None, mrope_positions=None,
                                  device=x.device).expand(b, s)
     x = _add_sinusoid(x, positions, cfg)
     aux = torch.zeros((), device=x.device)
+    block = _rematted(cfg)
     for start, ln, shared_after in _segments(cfg):
         for lp in params.layers[start:start + ln]:
-            x, a = _block(lp, x, positions, mrope_positions, cfg)
+            x, a = block(lp, x, positions, mrope_positions, cfg)
             aux = aux + a
         if shared_after:
             x = _shared_apply(params.shared_attn, cfg, x, positions)

@@ -1,6 +1,9 @@
-"""Step functions: so far the serving half of the reference's
-``src/repro/train/step.py`` (``serve_step``, ``prefill_step``)."""
+"""Step functions: a copy of the reference's ``src/repro/train/step.py``
+(``cross_entropy``, ``loss_fn``, ``train_step``, ``eval_step``,
+``serve_step``, ``prefill_step``)."""
 
-from .step import prefill_step, serve_step
+from .step import (cross_entropy, eval_step, loss_fn, prefill_step,
+                   serve_step, train_step)
 
-__all__ = ["prefill_step", "serve_step"]
+__all__ = ["cross_entropy", "eval_step", "loss_fn", "prefill_step",
+           "serve_step", "train_step"]

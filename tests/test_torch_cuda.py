@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, ``TorchBackend`` and the serving launcher on
-the card.
+"""The port's CUDA kernels, ``TorchBackend``, the serving launcher and
+the training path on the card.
 
 Every test here is marked ``cuda`` and skips (with its reason) where there
 is no NVIDIA GPU or no nvcc; on a machine with one, run
@@ -1064,3 +1064,108 @@ def test_pack_batches_on_card_match_numpy(dev, mode):
     assert len(got) == len(want)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def card_state(cfg, cpu, dev, seed):
+    """Random float32 moments at step 3, on the CPU and the same on the
+    card (keyed by parameter name)."""
+    from repro_torch.optim import init_opt_state
+
+    opt = init_opt_state(cpu)
+    g = torch.Generator().manual_seed(seed)
+    for key, scale in (("m", 1e-3), ("v", 1e-2)):
+        for t in opt[key].values():
+            t.copy_(scale * (0.5 + torch.rand(t.shape, generator=g)))
+    opt["step"].fill_(3)
+    on_card = {k: ({n: t.to(dev) for n, t in v.items()}
+                   if isinstance(v, dict) else v.to(dev))
+               for k, v in opt.items()}
+    return opt, on_card
+
+
+@pytest.mark.parametrize("accum,mb", [("scan", 1), ("unroll", 2),
+                                      ("scan", 2)])
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "olmoe-1b-7b",
+                                  "mamba2-1.3b", "zamba2-1.2b",
+                                  "qwen2-vl-7b"])
+def test_train_step_on_card_matches_cpu(dev, arch, accum, mb):
+    """One float32 ``train_step`` (remat on) on the card against the same
+    step on the CPU from the same weights, moments and batch; TF32 off, so
+    the two differ only in summation order: loss and grad norm at rtol
+    1e-5, parameters and moments at atol 1e-5 (tests/test_torch_train.py
+    holds the CPU to the reference ten times tighter; lr 1e-2 moves an
+    element by ~1e-4 with any of a wrong sign, bias correction or weight
+    decay)."""
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, card = lm_pair(arch, "float32", dev)
+    r = np.random.default_rng(5)
+    toks = r.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    labels = r.integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    kw = frontend_inputs(cfg, 4, 32)
+    host = {"inputs": torch.from_numpy(toks),
+            "labels": torch.from_numpy(labels), **kw}
+    opt_cpu, opt_card = card_state(cfg, cpu, dev, 6)
+    oc = OptConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    _, new_cpu, m_cpu = train_step(cpu, opt_cpu, host, cfg=cfg, opt_cfg=oc,
+                                   microbatches=mb, accum=accum)
+    _, new_card, m_card = train_step(
+        card, opt_card, {k: v.to(dev) for k, v in host.items()}, cfg=cfg,
+        opt_cfg=oc, microbatches=mb, accum=accum)
+    for key in ("loss", "grad_norm", "aux_loss"):
+        torch.testing.assert_close(torch.as_tensor(m_card[key]).cpu(),
+                                   torch.as_tensor(m_cpu[key]), rtol=1e-5,
+                                   atol=1e-6, msg=key)
+    for name, p in cpu.state_dict().items():
+        torch.testing.assert_close(card.state_dict()[name].cpu(), p,
+                                   rtol=0, atol=1e-5, msg=name)
+        torch.testing.assert_close(new_card["m"][name].cpu(),
+                                   new_cpu["m"][name], rtol=0, atol=1e-6,
+                                   msg=name)
+    assert int(new_card["step"]) == 4
+
+
+def test_checkpoint_round_trip_of_card_tensors(dev, tmp_path):
+    """Card tensors (float32, bfloat16, int32) save and restore onto the
+    card bit for bit; an async save snapshots before the next in-place
+    update on the card."""
+    from repro_torch.dist import checkpoint as ckpt
+    from repro_torch.pytree import tree_leaves
+
+    g = torch.Generator(dev).manual_seed(3)
+    tree = {"w": torch.randn(300, 70, generator=g, device=dev),
+            "h": {"b": torch.randn(513, generator=g, device=dev).to(
+                torch.bfloat16),
+                  "step": torch.tensor(7, dtype=torch.int32, device=dev)}}
+    want = [x.clone() for x in tree_leaves(tree)]
+    ckpt.save_async(str(tmp_path), 1, tree)
+    with torch.no_grad():
+        for x in tree_leaves(tree):
+            x.add_(1)
+    ckpt.wait_pending()
+    got, step, _ = ckpt.restore(str(tmp_path), tree, device=dev)
+    assert step == 1
+    for x, w in zip(tree_leaves(got), want):
+        assert x.device.type == "cuda" and x.dtype == w.dtype
+        assert torch.equal(x, w)
+
+
+def test_train_launcher_on_card(dev, tmp_path):
+    """``launch.train.main`` on the card at smoke size: finite losses that
+    fall, checkpoints and a resume, and a closing curation query over a
+    sealed segment that launches ``ewah_decode`` and ``planfuse``."""
+    from repro_torch.core.query import get_backend
+    from repro_torch.launch import train
+
+    get_backend("torch", device=dev).result_cache.clear()
+    d = str(tmp_path / "ck")
+    ops.reset_launches()
+    metrics = train.main(["--steps", "6", "--ckpt-dir", d, "--ckpt-every",
+                          "3"])
+    assert ops.LAUNCHES["ewah_decode"] > 0 and ops.LAUNCHES["planfuse"] > 0
+    losses = [m["loss"] for m in metrics]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    more = train.main(["--steps", "8", "--ckpt-dir", d, "--resume"])
+    assert [m["step"] for m in more] == [6, 7]

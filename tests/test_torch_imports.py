@@ -28,6 +28,13 @@ def test_modules_found():
             "repro_torch.launch.serve"} <= set(MODULES)
 
 
+def test_training_modules_found():
+    assert {"repro_torch.data.tokens", "repro_torch.optim",
+            "repro_torch.optim.adamw", "repro_torch.optim.compress",
+            "repro_torch.pytree", "repro_torch.launch.train",
+            "repro_torch.dist.checkpoint"} <= set(MODULES)
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_star_import_and_all_names(name):
     mod = importlib.import_module(name)
