@@ -157,9 +157,21 @@ reference package, and:
    gate: the full-width config at 2 layers, one ``train_step`` of 2 x 64
    tokens on the card against the same step on the CPU from the same
    weights and moments, TF32 off, at ``LM_TRAIN_TOL``;
-14. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+14. mesh phase (``[lm_mesh]``): both launchers with ``--mesh 1,1`` on a
+   one-rank NCCL ``DeviceMesh``, tinyllama-1.1b at full width and depth
+   as DTensors: ``launch.train.main`` with ``[lm_train]``'s argv for
+   ``LM_MESH_STEPS`` steps, whose first three losses must agree with
+   ``[lm_train]``'s to a relative ``LM_MESH_TOL`` (the largest difference
+   printed; one rank is expected to be bitwise equal), its median step
+   beside the one-card median, and its curation query's launches, which
+   must include ``ewah_decode`` and ``planfuse``; then
+   ``launch.serve.main`` over one packed batch (``LM_ONE_BATCH_ARGV``) on
+   one card and on the mesh, whose greedy tokens must be identical and
+   whose packing (rank 0) must launch ``ewah_decode`` and ``planfuse``;
+   each run must print a mesh on the ``nccl`` backend;
+15. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-15. prints the card line, the ``{"kernels": [...]}`` line and, last,
+16. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -289,6 +301,17 @@ LM_TRAIN_MORE = 2
 # loss and grad norm at rtol 1e-4, parameters at atol 1e-5, m at 1e-6
 LM_TRAIN_F32 = (2, 2, 64)
 LM_TRAIN_TOL = {"loss": 1e-4, "params": 1e-5, "m": 1e-6}
+# [lm_mesh]: both launchers with --mesh on a 1x1 mesh (NCCL on the card):
+# training with [lm_train]'s argv for LM_MESH_STEPS steps (the schedule is
+# the same for any --steps up to 10; at batch 8 the eighth step seals the
+# metadata index's second 32-row segment, which no earlier phase queried,
+# and the torch backend caches results by content, so the curation query
+# reaches the card), its first three losses held against [lm_train]'s at
+# a relative LM_MESH_TOL; serving one packed batch (LM_ONE_BATCH_ARGV), its greedy
+# tokens identical to the one-card server's
+LM_MESH = "1,1"
+LM_MESH_STEPS = 8
+LM_MESH_TOL = 1e-3
 
 
 
@@ -2196,16 +2219,18 @@ def step_ms(torch, fn, reps):
     return statistics.median(times), min(times), max(times)
 
 
-def lm_main(serve, argv):
-    """``serve.main(argv)`` with its printed lines logged as [lm_serve]."""
+def lm_main(serve, argv, tag="[lm_serve]"):
+    """``serve.main(argv)`` with its printed lines logged under ``tag``
+    (the lines land in the result's ``"lines"``)."""
     import contextlib
     import io
 
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         result = serve.main(argv)
-    for line in buf.getvalue().splitlines():
-        log(f"[lm_serve] main: {line}")
+    result["lines"] = buf.getvalue().splitlines()
+    for line in result["lines"]:
+        log(f"{tag} main: {line}")
     return result
 
 
@@ -2674,8 +2699,8 @@ def lm_family(torch, serve, ops, arch, device, reps):
     return out
 
 
-def train_main(train, argv):
-    """``train.main(argv)`` with its printed lines logged as [lm_train]:
+def train_main(train, argv, tag="[lm_train]"):
+    """``train.main(argv)`` with its printed lines logged under ``tag``:
     (metrics, lines)."""
     import contextlib
     import io
@@ -2685,7 +2710,7 @@ def train_main(train, argv):
         metrics = train.main(argv)
     lines = buf.getvalue().splitlines()
     for line in lines:
-        log(f"[lm_train] main: {line}")
+        log(f"{tag} main: {line}")
     return metrics, lines
 
 
@@ -3038,6 +3063,109 @@ def lm_train_phase(torch, device):
 # ---------------------------------------------------------------------------
 
 
+def lm_mesh_phase(torch, device, train_out=None):
+    """Both launchers on a ``DeviceMesh`` (see the module docstring,
+    phase 14).  ``train_out`` is ``[lm_train]``'s result; without it (a
+    run of this phase alone) the one-card losses come from a one-card run
+    of the same argv."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve, train
+
+    card = device != "cpu"
+    tag = "[lm_mesh]"
+    argv = [a for a in LM_TRAIN_ARGV if card or a != "--no-smoke"]
+    i = argv.index("--steps")
+    argv = [*argv[:i + 1], str(LM_MESH_STEPS), *argv[i + 2:],
+            "--device", str(device)]
+    if train_out is None:
+        ref, _ = train_main(train, argv, tag)
+        train_out = {"losses": [m["loss"] for m in ref],
+                     "median_step_ms": statistics.median(
+                         m["dt"] * 1e3 for m in ref[1:])}
+    if card:
+        torch.cuda.empty_cache()
+    out = {"mesh": LM_MESH, "train_argv": [*argv, "--mesh", LM_MESH]}
+
+    # the main path: training on the mesh, counts read around it
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    metrics, lines = train_main(train, out["train_argv"], tag)
+    out["train_main_s"] = time.perf_counter() - t0
+    out["train_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    mesh_line = next((x for x in lines if x.startswith("[train] mesh")), "")
+    out["train_mesh"] = mesh_line
+    want_backend = "nccl" if card else "gloo"
+    check(f"backend {want_backend}" in mesh_line,
+          f"{tag} the trainer printed {mesh_line!r}: want a {LM_MESH} "
+          f"mesh on {want_backend}")
+    losses = [m["loss"] for m in metrics]
+    one = train_out["losses"][:3]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses[:3], one)]
+    dts = [m["dt"] * 1e3 for m in metrics]
+    out.update(losses=losses, one_card_losses=one, loss_rel_diff=rel,
+               max_loss_rel_diff=max(rel), bitwise=losses[:3] == one,
+               step_ms=dts, median_step_ms=statistics.median(dts[1:]),
+               one_card_median_step_ms=train_out["median_step_ms"])
+    check(len(losses) == LM_MESH_STEPS and max(rel) <= LM_MESH_TOL,
+          f"{tag} mesh losses {losses}, one card {one}: relative "
+          f"differences {rel} (limit {LM_MESH_TOL})")
+    if card:
+        check(out["train_launches"].get("ewah_decode", 0) > 0
+              and out["train_launches"].get("planfuse", 0) > 0,
+              f"{tag} the curation query launched {out['train_launches']}: "
+              "want ewah_decode and planfuse")
+    log(f"{tag} {mesh_line[len('[train] '):]}: losses "
+        f"{[round(x, 6) for x in losses]}, one card {[round(x, 6) for x in one]}"
+        f": largest relative difference {max(rel):.3g} (bitwise "
+        f"{'equal' if out['bitwise'] else 'different'}); median step "
+        f"{out['median_step_ms']:.2f} ms on the mesh, "
+        f"{out['one_card_median_step_ms']:.2f} ms on one card (host clock);"
+        f" curation query launches {out['train_launches']}")
+    if card:
+        torch.cuda.empty_cache()
+
+    # serving one packed batch: one card, then the mesh (counted)
+    sargv = [a for a in LM_ONE_BATCH_ARGV if card or a != "--no-smoke"]
+    sargv = [*sargv, "--device", str(device)]
+    single = lm_main(serve, sargv, tag)
+    if card:
+        torch.cuda.empty_cache()
+    ops.reset_launches()
+    meshed = lm_main(serve, [*sargv, "--mesh", LM_MESH], tag)
+    out["serve_launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+    mesh_line = next((x for x in meshed["lines"]
+                      if x.startswith("[serve] mesh")), "")
+    out["serve_mesh"] = mesh_line
+    check(f"backend {want_backend}" in mesh_line,
+          f"{tag} the server printed {mesh_line!r}")
+    same = (len(single["outputs"]) == len(meshed["outputs"]) and all(
+        np.array_equal(a, b) for a, b in zip(single["outputs"],
+                                              meshed["outputs"])))
+    out.update(serve_tokens=meshed["tokens"], serve_s=meshed["seconds"],
+               one_card_serve_s=single["seconds"], tokens_identical=same,
+               batches=len(meshed["outputs"]))
+    check(same, f"{tag} the mesh server's greedy tokens differ from the "
+                "one-card server's")
+    if card:
+        check(out["serve_launches"].get("ewah_decode", 0) > 0
+              and out["serve_launches"].get("planfuse", 0) > 0,
+              f"{tag} the mesh server's packing launched "
+              f"{out['serve_launches']}: want ewah_decode and planfuse")
+    log(f"{tag} {mesh_line[len('[serve] '):]}: {len(meshed['outputs'])} "
+        f"packed batch(es), {meshed['tokens']} tokens, greedy tokens "
+        f"identical to one card: {same}; {meshed['seconds']:.2f} s on the "
+        f"mesh, {single['seconds']:.2f} s on one card; packing launches "
+        f"{out['serve_launches']}")
+    out["launches"] = dict(out["train_launches"])
+    for k, v in out["serve_launches"].items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    mesh_mod.shutdown()
+    return out
+
+
 def run(device="cuda", scale=1.0, reps=20):
     """All phases; ``scale`` shrinks the tables for a rehearsal on the CPU
     with the kernels' plain versions (``device="cpu"``)."""
@@ -3125,6 +3253,9 @@ def run(device="cuda", scale=1.0, reps=20):
     for k, v in lm["launches"].items():
         totals[k] += v
     report["lm_train"] = lm = lm_train_phase(torch, device)
+    for k, v in lm["launches"].items():
+        totals[k] += v
+    report["lm_mesh"] = lm = lm_mesh_phase(torch, device, lm)
     for k, v in lm["launches"].items():
         totals[k] += v
     report["launches"] = totals

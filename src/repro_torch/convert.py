@@ -13,8 +13,10 @@ into this package's ``Transformer`` ``state_dict``, and
 reference's tree (names, stacked layer axis, shapes and types);
 :func:`opt_state_from_reference` and :func:`opt_state_to_reference` do the
 same for the optimizer state (``m``, ``v``, ``step`` and, with error
-feedback, ``ef``).  The checkpoint writes the reference's tree, so that a
-step written by either package restores in the other.
+feedback, ``ef``), param-shaped or flat ZeRO-1 moments alike.  The
+checkpoint writes the reference's tree, so that a step written by either
+package restores in the other.  DTensor leaves (a mesh's state) are
+gathered to full tensors first.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ from .core.bitmap_index import BitmapIndex, ColumnIndex
 from .core.lifecycle import IndexWriter
 from .core.segment import Segment
 from .core.strategies import IndexSpec
-from .optim.adamw import named_params
+from .models.common import is_dtensor
+from .optim.adamw import _flat_size, named_params
 from .workload.stats import WorkloadStats
 
 
@@ -210,6 +213,8 @@ def _stacked(named: dict, device) -> dict:
     leaves copied."""
     flat, layers = {}, {}
     for name, t in named.items():
+        if is_dtensor(t):
+            t = t.full_tensor()
         hit = _layer_name(name)
         if hit is None:
             flat[name] = t.detach().to(device or t.device, copy=True)
@@ -237,57 +242,111 @@ def params_to_reference(params, device=None) -> dict:
     return _stacked(named_params(params), device)
 
 
-def _check_param_shaped(opt_state, params):
-    shapes = {n: p.shape for n, p in named_params(params).items()}
-    for key in ("m", "v", "ef"):
-        for name, t in opt_state.get(key, {}).items():
-            if t.shape != shapes[name]:
-                raise ValueError(
-                    f"{key}[{name!r}] has shape {tuple(t.shape)}, the "
-                    f"parameter {tuple(shapes[name])}: flat ZeRO-1 moments "
-                    "belong to a mesh, which the port does not run yet")
+def _zero_pad_of(opt_state, zero_pad):
+    """The ZeRO-1 multiple of a state's flat moments: ``zero_pad`` when
+    given, else the ranks a DTensor moment is ``Shard(0)`` over."""
+    if zero_pad is not None:
+        return zero_pad
+    for t in opt_state["m"].values():
+        if is_dtensor(t):
+            return t.shape[0] // t.to_local().shape[0]
+    raise ValueError("flat ZeRO-1 moments: pass zero_pad, the multiple "
+                     "they are padded to")
 
 
-def opt_state_to_reference(opt_state, params, device=None) -> dict:
+def _flat_to_reference(moments: dict, shapes: dict, zero_pad: int,
+                       device) -> dict:
+    """Flat per-parameter moments as the reference's flat tree: a layer
+    leaf's unpadded pieces concatenated in layer order and padded once to
+    a multiple of ``zero_pad``; the other leaves as they are."""
+    flat, layers = {}, {}
+    for name, t in moments.items():
+        if is_dtensor(t):
+            t = t.full_tensor()
+        n = 1
+        for d in shapes[name]:
+            n *= d
+        hit = _layer_name(name)
+        if hit is None:
+            flat[name] = t.detach().to(device or t.device, copy=True)
+        else:
+            layers.setdefault(hit[1], {})[hit[0]] = t.detach()[:n]
+    for rest, by_layer in layers.items():
+        cat = torch.cat([by_layer[i] for i in range(len(by_layer))])
+        out = torch.zeros(_flat_size(cat.numel(), zero_pad), dtype=cat.dtype,
+                          device=device or cat.device)
+        out[:cat.numel()] = cat
+        flat[f"layers.{rest}"] = out
+    return _nest(flat)
+
+
+def _is_flat(opt_state, shapes) -> bool:
+    return any(tuple(t.shape) != tuple(shapes[n])
+               for n, t in opt_state["m"].items())
+
+
+def opt_state_to_reference(opt_state, params, device=None,
+                           zero_pad=None) -> dict:
     """The reference's optimizer state tree (``repro.optim.
-    init_opt_state`` with ``zero_pad=1``) of this package's: ``m`` and
-    ``v`` (and ``ef``) as :func:`params_to_reference` trees, ``step``
-    copied.  The moments must be param-shaped (one card, no ZeRO-1)."""
-    _check_param_shaped(opt_state, params)
-    out = {"m": _stacked(opt_state["m"], device),
-           "v": _stacked(opt_state["v"], device),
-           "step": opt_state["step"].detach().to(
-               device or opt_state["step"].device, copy=True)}
+    init_opt_state``) of this package's: ``m`` and ``v`` (and ``ef``) as
+    :func:`params_to_reference` trees, ``step`` copied.  Flat ZeRO-1
+    moments map to the reference's flat leaves (see
+    :func:`_flat_to_reference`); their multiple is ``zero_pad``, by
+    default read off a DTensor moment's ``Shard(0)`` ranks."""
+    shapes = {n: tuple(p.shape) for n, p in named_params(params).items()}
+    step = opt_state["step"]
+    if is_dtensor(step):
+        step = step.full_tensor()
+    if _is_flat(opt_state, shapes):
+        zp = _zero_pad_of(opt_state, zero_pad)
+        out = {k: _flat_to_reference(opt_state[k], shapes, zp, device)
+               for k in ("m", "v")}
+    else:
+        out = {k: _stacked(opt_state[k], device) for k in ("m", "v")}
+    out["step"] = step.detach().to(device or step.device, copy=True)
     if "ef" in opt_state:
         out["ef"] = _stacked(opt_state["ef"], device)
     return out
 
 
-def opt_state_from_reference(tree, params, device) -> dict:
+def opt_state_from_reference(tree, params, device, zero_pad=None) -> dict:
     """This package's optimizer state (moments keyed by ``state_dict``
-    names, float32 on ``device``) of the reference's param-shaped
-    ``init_opt_state`` tree for the same model ``params``: the inverse of
-    :func:`opt_state_to_reference`."""
-    n_layers = 1 + max((hit[0] for hit in map(_layer_name,
-                                               named_params(params)) if hit),
+    names, float32 on ``device``) of the reference's ``init_opt_state``
+    tree for the same model ``params``: the inverse of
+    :func:`opt_state_to_reference`.  A flat layer leaf (1-D) is cut into
+    its layers' pieces, each padded to a multiple of ``zero_pad``
+    (required then)."""
+    named = named_params(params)
+    n_layers = 1 + max((hit[0] for hit in map(_layer_name, named) if hit),
                        default=-1)
 
-    def moments(sub):
+    def moments(sub, key):
         out = {}
         for name, leaf in _flatten(sub):
             t = _tensor(leaf, device, torch.float32)
             if not name.startswith("layers."):
                 out[name] = t.clone()
                 continue
+            rest = name[len('layers.'):]
+            if t.dim() == 1 and key != "ef":
+                if zero_pad is None:
+                    raise ValueError(f"{key}[{name!r}] is a flat ZeRO-1 "
+                                     "moment: pass zero_pad")
+                n = named[f"layers.0.{rest}"].numel()
+                for i in range(n_layers):
+                    piece = torch.zeros(_flat_size(n, zero_pad),
+                                        dtype=torch.float32, device=device)
+                    piece[:n] = t[i * n:(i + 1) * n]
+                    out[f"layers.{i}.{rest}"] = piece
+                continue
             if t.shape[0] != n_layers:
                 raise ValueError(f"{name} stacks {t.shape[0]} layers, the "
                                  f"model has {n_layers}")
             for i in range(n_layers):
-                out[f"layers.{i}.{name[len('layers.'):]}"] = t[i].clone()
+                out[f"layers.{i}.{rest}"] = t[i].clone()
         return out
 
-    state = {key: moments(tree[key]) for key in ("m", "v", "ef")
+    state = {key: moments(tree[key], key) for key in ("m", "v", "ef")
              if key in tree}
     state["step"] = _tensor(tree["step"], device, torch.int32)
-    _check_param_shaped(state, params)
     return state

@@ -1,16 +1,16 @@
 """Distributed layer: query fan-out over row-range index shards
-(query_fanout), the cross-process serve plane (serve_plane), and
+(query_fanout), the cross-process serve plane (serve_plane),
 checkpoints (checkpoint): the training state's pytrees and the serve
-plane's sharded segments.
+plane's sharded segments, and the model's placement on a mesh
+(sharding: DTensor placements of parameters, ZeRO-1 moments, batches and
+the decode cache).
 
 Submodules resolve lazily (PEP 562): serve-plane *worker* processes run
 ``python -m repro_torch.dist.serve_plane`` through this package and load
-only what a request needs.  The reference's ``sharding`` module (mesh
-placement of model parameters) is later work: the port trains and serves
-on one card.
+only what a request needs.
 """
 
-_SUBMODULES = ("checkpoint", "query_fanout", "serve_plane")
+_SUBMODULES = ("checkpoint", "query_fanout", "serve_plane", "sharding")
 
 _LAZY = {
     # query_fanout: placement + in-process fan-out

@@ -60,7 +60,7 @@ import zlib
 
 import numpy as np
 
-from ..pytree import tree_leaves, tree_unflatten
+from ..pytree import tree_leaves, tree_map, tree_unflatten
 
 _STEP_PREFIX = "step_"
 _META = "metadata.json"
@@ -169,12 +169,34 @@ def _crc(stored: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(stored).reshape(-1).view(np.uint8))
 
 
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    import sys
+
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _barrier() -> None:
+    import sys
+
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        dist.barrier()
+
+
 def _host(x) -> tuple[str, np.ndarray]:
     """(dtype name, stored array) of one leaf, copied to host memory: a
-    bfloat16 leaf as its uint16 raw view."""
+    bfloat16 leaf as its uint16 raw view; a DTensor gathered first."""
     import torch
 
     if isinstance(x, torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
         t = x.detach().to("cpu", memory_format=torch.contiguous_format,
                           copy=True)
         if t.dtype == torch.bfloat16:
@@ -235,8 +257,14 @@ def save(directory: str, step: int, tree, extra=None,
     """Synchronous atomic save of a tree of tensors or arrays; ``extra`` is
     a small JSON-able dict (data pipeline position, RNG state, ...);
     ``keep`` retains only the N newest steps after a successful write.
-    Returns the bytes of the leaves written."""
-    return _write(directory, step, _snapshot(tree), extra, keep)
+    Returns the bytes of the leaves written.  In a process group every
+    rank calls it (DTensor leaves are gathered), rank 0 alone writes, and
+    every rank returns once the step is committed."""
+    leaves = _snapshot(tree)
+    nbytes = (_write(directory, step, leaves, extra, keep) if _rank() == 0
+              else sum(stored.nbytes for _, stored in leaves))
+    _barrier()
+    return nbytes
 
 
 _pending: list[threading.Thread] = []  # guarded-by: _pending_lock
@@ -249,10 +277,13 @@ def save_async(directory: str, step: int, tree, extra=None,
 
     The device-to-host copy happens before this returns, so the caller may
     update the tree's tensors in place at once.  Returns the writer thread
-    (already started); ``wait_pending()`` joins all outstanding ones.
+    (already started); ``wait_pending()`` joins all outstanding ones.  In
+    a process group every rank calls it and rank 0's thread writes (the
+    others' threads do nothing).
     """
     leaves = _snapshot(tree)
-    t = threading.Thread(target=_write, args=(directory, step, leaves, extra,
+    target = _write if _rank() == 0 else (lambda *a: 0)
+    t = threading.Thread(target=target, args=(directory, step, leaves, extra,
                                               keep),
                          name=f"ckpt-save-{step}", daemon=True)
     with _pending_lock:
@@ -262,11 +293,13 @@ def save_async(directory: str, step: int, tree, extra=None,
 
 
 def wait_pending() -> None:
-    """Block until every save_async writer has finished."""
+    """Block until every save_async writer has finished (in a process
+    group, every rank's, so all ranks see the committed steps)."""
     with _pending_lock:
         threads, _pending[:] = list(_pending), []
     for t in threads:
         t.join()
+    _barrier()
 
 
 def _load_step(path: str, n_leaves: int):
@@ -314,7 +347,7 @@ def _tensor(name: str, stored: np.ndarray):
     return torch.from_numpy(stored)
 
 
-def restore(directory: str, tree_like, device=None):
+def restore(directory: str, tree_like, device=None, shardings=None):
     """Load the newest valid checkpoint.
 
     ``tree_like`` supplies the tree structure and the expected leaf
@@ -353,6 +386,15 @@ def restore(directory: str, tree_like, device=None):
                     "flat ZeRO-1); restart fresh or migrate the "
                     "checkpoint")
         leaves = [_tensor(name, x).to(device) for name, x in raw]
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+
+            placed = tree_leaves(tree_map(
+                lambda _, sh: False if sh is None else sh, tree_like,
+                shardings))
+            leaves = [t if sh is False else
+                      distribute_tensor(t, sh.mesh, sh.placements)
+                      for t, sh in zip(leaves, placed)]
         return tree_unflatten(tree_like, leaves), saved_step, extra
     raise FileNotFoundError(
         f"all checkpoints under {directory!r} failed validation: "

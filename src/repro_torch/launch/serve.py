@@ -14,9 +14,19 @@ port's bitmap query surfaces with the ``torch`` backend by default: each
 ``Eq(bin)`` plan goes through ``TorchBackend`` (``ewah_decode`` then
 ``planfuse`` on the card), and ``device`` travels as a backend option into
 every ``query_many``, the ``ShardedIndex`` fan-out and the ``ServePlane``
-workers.  The model is the dense ``Transformer`` in eager PyTorch on one
-card.  ``--smoke`` can be turned off (``--no-smoke``); ``--mesh`` is not
-ported (``launch/mesh.py`` and ``dist/sharding.py`` are later work).
+workers.  The model is the ``Transformer`` in eager PyTorch on one card,
+or on a mesh: ``--mesh data,model`` (or a ``torchrun`` world of several
+ranks, one process a rank) places the parameters by ``param_shardings``,
+the decode cache by ``cache_shardings`` and the prompts by
+``batch_shardings(..., "prefill")``, with the batch replicated when the
+data axis does not divide it.  Admission packing then runs on rank 0
+alone and its batches are broadcast, so every rank serves the same
+batches; rank 0 alone prints.  ``--smoke`` can be turned off
+(``--no-smoke``).
+
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --device cpu --mesh 2,2                     # 4 gloo ranks, host
+  PYTHONPATH=src python -m repro_torch.launch.serve --no-smoke --mesh 1,1
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import argparse
 import os
 import time
 from contextlib import contextmanager, nullcontext
+from functools import partial
 
 import numpy as np
 import torch
@@ -34,11 +45,13 @@ from ..configs import get_config
 from ..core import BitmapIndex, Eq, IndexSpec, IndexWriter
 from ..core.lifecycle import BackgroundCompactor
 from ..core.query import PLAN_STATS
+from ..dist import sharding
 from ..models import transformer
-from ..models.common import resolve_device
+from ..models.common import ShardingCtx, mesh_axes, resolve_device
 from ..serve.prefill import prefill_with_cache
 from ..train import serve_step
 from ..workload import WORKLOAD_STATS
+from . import mesh as mesh_mod
 
 __all__ = ["BIN_WIDTH", "PhaseProfile", "SegmentedAdmission", "main",
            "make_requests", "pack_batches", "padding_waste"]
@@ -299,8 +312,9 @@ def _sync(device):
 def main(argv=None):
     """Serve ``--requests`` synthetic requests; prints what the reference
     prints and returns a summary: padding waste by mode, requests, tokens,
-    seconds (host clock after a device synchronise) and the phase
-    profile."""
+    seconds (host clock after a device synchronise), the phase profile
+    and ``outputs``, each packed batch's greedy tokens (its rows, the
+    generated tokens) as a numpy array."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--smoke", action=argparse.BooleanOptionalAction,
@@ -311,6 +325,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--gen-tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--mesh", default=None,
+                    help="data,model: serve on a DeviceMesh of that shape, "
+                         "one process a rank (torchrun); default: one card "
+                         "without a process group, or every torchrun rank "
+                         "data-parallel")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and of the torch query "
                          "backend (default: the CUDA card)")
@@ -364,29 +383,61 @@ def main(argv=None):
         print(f"workload-stats {'loaded from' if warm else 'cold start at'} "
               f"{args.workload_stats}: {WORKLOAD_STATS.stats()}")
 
-    device = resolve_device(args.device)
+    mesh, device, rank = mesh_mod.setup(args.mesh, resolve_device(args.device))
+    rules = None
+    if mesh is not None:
+        # batches the data axis does not divide are replicated
+        rules = {"batch": None} if args.batch % mesh_axes(mesh)["data"] \
+            else None
+    with nullcontext() if mesh is None else ShardingCtx(mesh, rules):
+        return _serve(args, cfg, rng, device, mesh, rank, rules)
+
+
+def _broadcast(obj, mesh):
+    """Rank 0's ``obj`` on every rank of ``mesh``'s group."""
+    if mesh is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _serve(args, cfg, rng, device, mesh, rank, rules):
+    say = partial(print, flush=True) if rank == 0 else (lambda *a: None)
     params = transformer.init_params(cfg, device=device)
+    tok_sh = None
+    if mesh is not None:
+        say(f"[serve] {mesh_mod.describe(mesh)}"
+            + (", batch replicated" if rules else ""))
+        sharding.shard_params(params,
+                              sharding.param_shardings(mesh, cfg, rules))
+        tok_sh = sharding.batch_shardings(mesh, cfg, "prefill", rules)
     pack = dict(backend=args.query_backend, query_fanout=args.query_fanout,
                 admission=args.admission, compactor=args.compactor,
                 device=str(device))
 
     lengths = make_requests(args.requests, rng)
     waste = {}
-    for mode in (False, True):
-        batches = pack_batches(lengths, args.batch, histogram_aware=mode,
-                               hosts=args.hosts if mode else 0, **pack)
-        waste[mode] = padding_waste(lengths, batches)
-        print(f"packing histogram_aware={mode} "
-              f"(query backend {args.query_backend}, "
-              f"fanout {args.query_fanout}, "
-              f"admission {args.admission}, "
-              f"hosts {args.hosts}): "
-              f"padding waste {waste[mode]:.1%}")
-
     prof = PhaseProfile()
-    with prof.span("pack"):
-        batches = pack_batches(lengths, args.batch, histogram_aware=True,
-                               hosts=args.hosts, **pack)
+    batches = None
+    if rank == 0:
+        # admission runs on rank 0; the packed batches are broadcast
+        for mode in (False, True):
+            batches = pack_batches(lengths, args.batch, histogram_aware=mode,
+                                   hosts=args.hosts if mode else 0, **pack)
+            waste[mode] = padding_waste(lengths, batches)
+            say(f"packing histogram_aware={mode} "
+                f"(query backend {args.query_backend}, "
+                f"fanout {args.query_fanout}, "
+                f"admission {args.admission}, "
+                f"hosts {args.hosts}): "
+                f"padding waste {waste[mode]:.1%}")
+        with prof.span("pack"):
+            batches = pack_batches(lengths, args.batch, histogram_aware=True,
+                                   hosts=args.hosts, **pack)
+    waste, batches = _broadcast((waste, batches), mesh)
     trace_cm = nullcontext()
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -397,6 +448,7 @@ def main(argv=None):
         trace_cm = profile(activities=acts)
     t0 = time.time()
     generated = 0
+    outputs = []
     with trace_cm as trace:
         for idx in batches:
             b = len(idx)
@@ -412,14 +464,18 @@ def main(argv=None):
             prompts = rng.integers(0, cfg.vocab_size,
                                    size=(args.batch, prompt_len),
                                    dtype=np.int32)
+            tokens = torch.from_numpy(prompts).to(device)
+            if tok_sh is not None:
+                tokens = sharding.distribute({"inputs": tokens},
+                                             tok_sh)["inputs"]
             # fused prefill: one forward pass fills the whole KV cache
             with prof.span("prefill"):
-                logits, cache = prefill_with_cache(
-                    params, cfg, torch.from_numpy(prompts).to(device),
-                    args.max_len)
+                logits, cache = prefill_with_cache(params, cfg, tokens,
+                                                   args.max_len)
                 if args.profile:
                     _sync(device)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            steps = [tok]
             cache_len = prompt_len
             generated += b
             for _ in range(args.gen_tokens - 1):
@@ -428,30 +484,36 @@ def main(argv=None):
                                             cfg=cfg)
                     if args.profile:
                         _sync(device)
+                steps.append(tok)
                 cache_len += 1
                 generated += b
+            outputs.append((b, steps))
         # the clock stops after the device has finished, not at the enqueue
         _sync(device)
     dt = time.time() - t0
-    print(f"served {len(lengths)} requests, {generated} tokens "
-          f"in {dt:.1f}s ({generated/dt:.1f} tok/s)")
-    if args.profile:
+    outputs = [torch.cat([sharding.gather(t) for t in steps], 1)[:b]
+               .cpu().numpy() for b, steps in outputs
+               if device.type != "meta"]
+    say(f"served {len(lengths)} requests, {generated} tokens "
+        f"in {dt:.1f}s ({generated/dt:.1f} tok/s)")
+    if args.profile and rank == 0:
         os.makedirs(args.profile, exist_ok=True)
         path = os.path.join(args.profile, "serve_trace.json")
         trace.export_chrome_trace(path)
-        print(f"profiler trace written to {path}")
+        say(f"profiler trace written to {path}")
         prof.report()
-    if args.plan_stats:
+    if args.plan_stats and rank == 0:
         PLAN_STATS.autotune()
         PLAN_STATS.save(args.plan_stats)
-        print(f"plan-stats saved to {args.plan_stats}: {PLAN_STATS.stats()}")
-    if args.workload_stats:
+        say(f"plan-stats saved to {args.plan_stats}: {PLAN_STATS.stats()}")
+    if args.workload_stats and rank == 0:
         WORKLOAD_STATS.save(args.workload_stats)
-        print(f"workload-stats saved to {args.workload_stats}: "
-              f"{WORKLOAD_STATS.stats()}")
+        say(f"workload-stats saved to {args.workload_stats}: "
+            f"{WORKLOAD_STATS.stats()}")
     return {"waste": waste, "requests": len(lengths), "tokens": generated,
-            "seconds": dt, "phases": dict(prof.acc)}
+            "seconds": dt, "phases": dict(prof.acc), "outputs": outputs}
 
 
 if __name__ == "__main__":
     main()
+    mesh_mod.shutdown()

@@ -1,4 +1,4 @@
-"""End-to-end training launcher with fault tolerance, on one card.
+"""End-to-end training launcher with fault tolerance, on one card or a mesh.
 
 The port of ``src/repro/launch/train.py``: atomic checkpoints and
 auto-resume, heartbeat files for the cluster monitor, straggler detection,
@@ -10,14 +10,26 @@ and ``planfuse`` on the card once the index has sealed a segment).
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 50 --ckpt-dir /tmp/ckpt --resume                # host, smoke
   PYTHONPATH=src python -m repro_torch.launch.train --no-smoke  # card, full
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --device cpu --mesh 2,2                                 # 4 gloo ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --no-smoke --mesh 1,1
 
 The model is the port's ``Transformer`` in eager PyTorch on ``--device``
 (default: the CUDA card, which raises where there is none), with
 ``cfg.remat`` forced on as in the reference.  Checkpoints hold the
 reference's tree (``convert.params_to_reference``), so either package
-resumes the other's run.  No ``--mesh``: ``launch/mesh.py`` and
-``dist/sharding.py`` are later work, so the moments are param-shaped
-(``zero_pad=1``).
+resumes the other's run.
+
+``--mesh data,model`` (or a ``torchrun`` world of several ranks) trains
+on a ``DeviceMesh`` (``launch/mesh.py``; NCCL on cards, gloo on the
+host), one process a rank: the parameters are made on the one-card
+path's generator, seeded 0, and placed by ``param_shardings``; the
+moments are flat ZeRO-1 leaves (``zero_pad_for(mesh)``) placed by
+``opt_shardings``; each batch is placed by ``batch_shardings(...,
+"train")``.  A resume restores into the unplaced state and then places
+it.  Rank 0 alone prints, writes the heartbeat, the metrics and the
+checkpoints, and runs the curation query.  Without ``--mesh`` and
+without a ``torchrun`` world no process group starts.
 """
 
 from __future__ import annotations
@@ -26,6 +38,7 @@ import argparse
 import json
 import os
 import time
+from contextlib import nullcontext
 from dataclasses import replace
 from functools import partial
 
@@ -37,11 +50,13 @@ from ..configs import get_config
 from ..data.metadata_index import MetadataIndex
 from ..data.tokens import TokenPipeline
 from ..dist import checkpoint as ckpt
+from ..dist import sharding
 from ..models import transformer
-from ..models.common import resolve_device
+from ..models.common import ShardingCtx, resolve_device
 from ..optim import OptConfig, init_opt_state
 from ..pytree import tree_leaves
 from ..train import train_step
+from . import mesh as mesh_mod
 
 __all__ = ["Heartbeat", "StragglerMonitor", "main"]
 
@@ -89,12 +104,26 @@ class StragglerMonitor:
         return False
 
 
-def _state(params, opt_state, device=None):
+def _state(params, opt_state, device=None, zero_pad=1):
     """The checkpoint tree: the reference's ``{"params", "opt"}`` tree of
-    the model and its optimizer state, on ``device`` (default: theirs)."""
+    the model and its optimizer state, on ``device`` (default: theirs;
+    DTensors are gathered)."""
     return {"params": convert.params_to_reference(params, device),
-            "opt": convert.opt_state_to_reference(opt_state, params,
-                                                  device=device)}
+            "opt": convert.opt_state_to_reference(
+                opt_state, params, device=device, zero_pad=zero_pad)}
+
+
+def place_state(params, opt_state, mesh, cfg):
+    """Place the model's parameters (in place) and the optimizer state on
+    ``mesh``: ``param_shardings`` and ``opt_shardings``.  Returns the
+    placed optimizer state."""
+    sharding.shard_params(params, sharding.param_shardings(mesh, cfg))
+    o_sh = sharding.opt_shardings(mesh, cfg)
+    placed = {k: sharding.distribute(opt_state[k], o_sh[k])
+              for k in ("m", "v")}
+    placed["step"] = sharding.distribute(
+        {"step": opt_state["step"]}, {"step": o_sh["step"]})["step"]
+    return placed
 
 
 def main(argv=None):
@@ -112,6 +141,11 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--mesh", default=None,
+                    help="data,model: train on a DeviceMesh of that shape, "
+                         "one process a rank (torchrun); default: one card "
+                         "without a process group, or every torchrun rank "
+                         "data-parallel")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and of the torch query "
                          "backend (default: the CUDA card)")
@@ -134,14 +168,21 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     cfg = replace(cfg, remat=True)
-    device = resolve_device(args.device)
+    mesh, device, rank = mesh_mod.setup(args.mesh, resolve_device(args.device))
+    with nullcontext() if mesh is None else ShardingCtx(mesh):
+        return _train(args, cfg, device, mesh, rank)
+
+
+def _train(args, cfg, device, mesh, rank):
+    say = partial(print, flush=True) if rank == 0 else (lambda *a: None)
     query_opts = ({"device": str(device)} if args.query_backend == "torch"
                   else {})
 
     opt_cfg = OptConfig(lr=args.lr, total_steps=max(args.steps, 10),
                         warmup_steps=max(2, args.steps // 20))
     params = transformer.init_params(cfg, device=device)
-    opt_state = init_opt_state(params)
+    zero_pad = 1 if mesh is None else sharding.zero_pad_for(mesh)
+    opt_state = init_opt_state(params, zero_pad=zero_pad)
     step_fn = partial(train_step, cfg=cfg, opt_cfg=opt_cfg,
                       microbatches=args.microbatches)
 
@@ -151,86 +192,98 @@ def main(argv=None):
 
     if args.resume and args.ckpt_dir and ckpt.available_steps(args.ckpt_dir):
         # shapes only; the leaves come back on the host and are carried
-        # into the model's own tensors
+        # into the model's own (not yet placed) tensors
         t0 = time.time()
         restored, start_step, extra = ckpt.restore(
-            args.ckpt_dir, _state(params, opt_state, "meta"), device="cpu")
+            args.ckpt_dir, _state(params, opt_state, "meta", zero_pad),
+            device="cpu")
         nbytes = sum(t.numel() * t.element_size()
                      for t in tree_leaves(restored))
         params.load_state_dict(convert.params_from_reference(
             restored["params"], cfg, device))
-        opt_state = convert.opt_state_from_reference(restored["opt"], params,
-                                                     device)
+        opt_state = convert.opt_state_from_reference(
+            restored["opt"], params, device, zero_pad=zero_pad)
         del restored
         if "pipeline" in extra:
             pipeline.restore(extra["pipeline"])
-        print(f"[train] resumed from step {start_step}", flush=True)
-        print(f"[train] restored {nbytes} B in {time.time() - t0:.2f} s",
-              flush=True)
+        say(f"[train] resumed from step {start_step}")
+        say(f"[train] restored {nbytes} B in {time.time() - t0:.2f} s")
         if start_step >= args.steps:
             # restart of an already-finished run (cluster monitors do
             # this); exit cleanly instead of entering an empty loop
-            print(f"[train] already at step {start_step} >= --steps "
-                  f"{args.steps}; nothing to do", flush=True)
+            say(f"[train] already at step {start_step} >= --steps "
+                f"{args.steps}; nothing to do")
             return []
 
-    hb = Heartbeat(args.heartbeat) if args.heartbeat else None
+    b_sh = None
+    if mesh is not None:
+        say(f"[train] {mesh_mod.describe(mesh)}")
+        opt_state = place_state(params, opt_state, mesh, cfg)
+        b_sh = sharding.batch_shardings(mesh, cfg, "train")
+    hb = Heartbeat(args.heartbeat) if args.heartbeat and rank == 0 else None
     straggler = StragglerMonitor()
     metrics_log = []
     t_start = time.time()
 
     for step in range(start_step, args.steps):
         if args.simulate_failure_at and step == args.simulate_failure_at:
-            print(f"[train] simulating failure at step {step}", flush=True)
+            say(f"[train] simulating failure at step {step}")
             os._exit(42)
         t0 = time.time()
         batch_np, meta = pipeline.next_batch()
-        meta_index.add_batch(meta)
+        if rank == 0:
+            meta_index.add_batch(meta)
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in batch_np.items()}
+        if b_sh is not None:
+            batch = sharding.distribute(batch, b_sh)
         params, opt_state, m = step_fn(params, opt_state, batch)
         loss = float(m["loss"])
         gnorm = float(m["grad_norm"])
         dt = time.time() - t0
         if straggler.observe(step, dt):
-            print(f"[train] straggler step {step}: {dt:.2f}s", flush=True)
+            say(f"[train] straggler step {step}: {dt:.2f}s")
         if hb:
             hb.beat(step, loss=loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d}  loss {loss:.4f}  "
-                  f"gnorm {gnorm:.3f}  {dt*1e3:.0f} ms", flush=True)
+            say(f"step {step:5d}  loss {loss:.4f}  "
+                f"gnorm {gnorm:.3f}  {dt*1e3:.0f} ms")
         metrics_log.append({"step": step, "loss": loss, "grad_norm": gnorm,
                             "dt": dt})
         if args.ckpt_dir and (step + 1) % args.ckpt_every == 0:
             ckpt.save_async(
-                args.ckpt_dir, step + 1, _state(params, opt_state),
+                args.ckpt_dir, step + 1,
+                _state(params, opt_state, zero_pad=zero_pad),
                 extra={"pipeline": pipeline.snapshot()})
 
     ckpt.wait_pending()
     if args.ckpt_dir:
         t0 = time.time()
         nbytes = ckpt.save(args.ckpt_dir, args.steps,
-                           _state(params, opt_state),
+                           _state(params, opt_state, zero_pad=zero_pad),
                            extra={"pipeline": pipeline.snapshot()})
-        print(f"[train] saved step {args.steps}: {nbytes} B in "
-              f"{time.time() - t0:.2f} s", flush=True)
+        say(f"[train] saved step {args.steps}: {nbytes} B in "
+            f"{time.time() - t0:.2f} s")
 
-    # data-plane bitmap index demo: curation query over trained batches
-    # (add_batch sealed segments incrementally; no monolithic build)
-    rows, scanned = meta_index.query(where={"domain": 3},
-                                     backend=args.query_backend, **query_opts)
-    elapsed = time.time() - t_start
-    print(f"[train] done in {elapsed:.1f}s; metadata index "
-          f"{meta_index.size_words()} words; domain=3 -> {len(rows)} rows "
-          f"({scanned} compressed words scanned)", flush=True)
-    if args.metrics_out:
+    if rank == 0:
+        # data-plane bitmap index demo: curation query over trained
+        # batches (add_batch sealed segments incrementally)
+        rows, scanned = meta_index.query(where={"domain": 3},
+                                         backend=args.query_backend,
+                                         **query_opts)
+        elapsed = time.time() - t_start
+        say(f"[train] done in {elapsed:.1f}s; metadata index "
+            f"{meta_index.size_words()} words; domain=3 -> {len(rows)} rows "
+            f"({scanned} compressed words scanned)")
+    if args.metrics_out and rank == 0:
         with open(args.metrics_out, "w") as f:
             json.dump({"metrics": metrics_log,
                        "stragglers": straggler.events}, f)
     first, last = metrics_log[0]["loss"], metrics_log[-1]["loss"]
-    print(f"[train] loss {first:.4f} -> {last:.4f}", flush=True)
+    say(f"[train] loss {first:.4f} -> {last:.4f}")
     return metrics_log
 
 
 if __name__ == "__main__":
     main()
+    mesh_mod.shutdown()

@@ -22,9 +22,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import apply_mrope, apply_rope, dense_init
+from .common import (apply_mrope, apply_rope, dense_init, from_local,
+                     is_dtensor, lshard, placed_as, shard_span)
 
-__all__ = ["NEG_INF", "Attention", "attention", "decode_attention"]
+__all__ = ["NEG_INF", "Attention", "attention", "attention_axes",
+           "decode_attention", "write_kv"]
 
 NEG_INF = -1e30
 
@@ -54,6 +56,19 @@ class Attention(nn.Module):
                     torch.zeros(width, dtype=dtype, device=device)))
 
 
+def attention_axes(cfg):
+    """The logical axes of each attention parameter."""
+    ax = {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+    if cfg.qkv_bias:
+        ax.update({"bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)})
+    return ax
+
+
 def _scaled(q, hd):
     """``q * hd**-0.5`` with the scale rounded to ``q``'s type first, as
     JAX does with a Python scalar."""
@@ -77,6 +92,9 @@ def _project_qkv(p, cfg, x, positions, mrope_positions=None):
     elif cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = lshard(q, "batch", "seq", "heads", "head_dim")
+    k = lshard(k, "batch", "seq", "kv_heads", "head_dim")
+    v = lshard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
 
 
@@ -165,14 +183,136 @@ def attention(p, cfg, x, positions, mrope_positions=None, impl="blockwise",
     b, s, d = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions, mrope_positions)
     window = cfg.sliding_window or None
-    if impl == "dense" or s <= 1024:
-        o = _dense_attn(q, k, v, cfg.n_kv_heads, window)
+    core = _dense_attn if impl == "dense" or s <= 1024 else _blockwise_attn
+    if is_dtensor(q):
+        # on a mesh the core runs on each rank's batch rows and heads
+        # (independent of the others'), as plain tensors: the products'
+        # flattens of a tensor sharded on two dimensions have no view rule
+        # on every PyTorch release
+        ql, kl, vl, n_kv, qp = _local_heads(q, k, v)
+        o = from_local(core(ql, kl, vl, n_kv, window), q.device_mesh, qp,
+                       q.shape)
     else:
-        o = _blockwise_attn(q, k, v, cfg.n_kv_heads, window)
+        o = core(q, k, v, cfg.n_kv_heads, window)
+    o = lshard(o, "batch", "seq", "heads", "head_dim")
     out = o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
+    out = lshard(out, "batch", "seq", "embed")
     if return_kv:
         return out, k, v
     return out
+
+
+def _without(placements, *dims):
+    """``placements`` with a ``Shard`` of any of ``dims`` replicated."""
+    from torch.distributed.tensor import Replicate
+
+    return [Replicate() if any(p.is_shard(d) for d in dims) else p
+            for p in placements]
+
+
+def write_kv(cache, new, start: int):
+    """Write ``new`` (b, n, kvh, hd) into ``cache`` (b, S, kvh, hd) at
+    positions [start, start + n), in place, and return ``cache``.
+
+    On a mesh the cache's sequence dimension is sharded ("kv_seq" on the
+    model axis), and an in-place slice write there belongs to one rank:
+    each rank writes the new rows that fall in its own positions into its
+    local shard (``new`` placed as the cache with its sequence whole)."""
+    n = new.shape[1]
+    if not is_dtensor(cache):
+        cache[:, start:start + n] = new.to(cache.dtype)
+        return cache
+    off, length = shard_span(cache, 1)
+    new = placed_as(new, _without(cache.placements, 1)).to_local()
+    lo, hi = max(start, off), min(start + n, off + length)
+    if lo < hi:
+        with torch.no_grad():
+            cache.to_local()[:, lo - off:hi - off] = \
+                new[:, lo - start:hi - start].to(cache.dtype)
+    return cache
+
+
+def _local_heads(q, k, v):
+    """On a mesh: (q, k, v, kv heads, q placements) for the attention
+    core on this rank's shards, as plain tensors: q keeps its batch and
+    head shards, k and v their batch shard and the kv heads this rank's
+    query heads read (GQA: query head j reads kv head j // g).  A head
+    split that does not align with the kv groups replicates the heads."""
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    qp = _without(q.placements, 1, 3)
+    kvp = _without(q.placements, 1, 2, 3)
+    q = placed_as(q, qp)
+    off, h_l = shard_span(q, 2)
+    lo, hi = off // g, (off + h_l - 1) // g + 1
+    if not ((off % g == 0 and h_l % g == 0) or hi - lo == 1):
+        qp = kvp
+        q = placed_as(q, qp)
+        lo, hi = 0, kvh
+    # ranks that split the heads each read their own kv heads: the
+    # gradient of k and v adds over them
+    from torch.distributed.tensor import Partial
+
+    grad = [Partial() if qpl.is_shard(2) else pl
+            for pl, qpl in zip(kvp, qp)]
+    k = placed_as(k, kvp).to_local(grad_placements=grad)[:, :, lo:hi]
+    v = placed_as(v, kvp).to_local(grad_placements=grad)[:, :, lo:hi]
+    return q.to_local(), k, v, hi - lo, qp
+
+
+def _decode_scores(cfg, q, cache_k, cache_len, offset):
+    """Masked float32 scores (b, n, g, 1, S) of q (b, 1, h, hd) against
+    the cache positions [offset, offset + S)."""
+    b, S = q.shape[0], cache_k.shape[1]
+    g = cfg.n_heads // cfg.n_kv_heads
+    qh = _scaled(q.reshape(b, 1, cfg.n_kv_heads, g, cfg.head_dim),
+                 cfg.head_dim)
+    s_ = _scores(qh, cache_k)
+    k_pos = offset + torch.arange(S, device=q.device)[None, :]
+    valid = k_pos <= cache_len
+    if cfg.sliding_window:
+        valid &= k_pos > cache_len - cfg.sliding_window
+    return torch.where(valid, s_, NEG_INF)
+
+
+def _decode_core(cfg, q, cache_k, cache_v, cache_len, offset=0):
+    """(b, 1, n, g, hd) attention of q over a whole cache."""
+    s_ = _decode_scores(cfg, q, cache_k, cache_len, offset)
+    p_ = torch.softmax(s_, dim=-1).to(cache_v.dtype)
+    return torch.einsum("bngqk,bknd->bqngd", p_, cache_v)
+
+
+def _sharded_decode(cfg, q, cache_k, cache_v, cache_len):
+    """The decode core on a mesh, on local shards: q placed as the
+    cache's batch with every head, each rank's scores over its own cache
+    positions.  With the sequence whole on every rank this is the
+    one-card core; with it split, each rank's partial softmax (its
+    maximum, exp-sum and weighted values, in float32) is combined across
+    the ranks that split it (all-reduces on those mesh axes' groups)."""
+    import torch.distributed as dist
+
+    mesh = cache_k.device_mesh
+    qp = _without(cache_k.placements, 1)
+    ql = placed_as(q, qp).to_local()
+    off, _ = shard_span(cache_k, 1)
+    ck, cv = cache_k.to_local(), cache_v.to_local()
+    split = [md for md, p in enumerate(cache_k.placements)
+             if p.is_shard(1) and mesh.size(md) > 1]
+    if not split:
+        o = _decode_core(cfg, ql, ck, cv, cache_len, off)
+    else:
+        s_ = _decode_scores(cfg, ql, ck, cache_len, off)
+        m = s_.amax(-1, keepdim=True)
+        for md in split:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(md))
+        e = torch.exp(s_ - m)
+        parts = [e.sum(-1), torch.einsum("bngqk,bknd->bqngd", e, cv.float())]
+        for t in parts:
+            for md in split:
+                dist.all_reduce(t, group=mesh.get_group(md))
+        # (b, n, g, 1) sums against (b, 1, n, g, hd) weighted values
+        o = (parts[1] / parts[0].permute(0, 3, 1, 2)[..., None]).to(cv.dtype)
+    return from_local(o, mesh, qp, (q.shape[0], *o.shape[1:]))
 
 
 def decode_attention(p, cfg, x, cache_k, cache_v, cache_len: int,
@@ -195,18 +335,13 @@ def decode_attention(p, cfg, x, cache_k, cache_v, cache_len: int,
     if mrope_positions is not None:
         mrope_positions = positions.expand(3, b, 1)
     q, k, v = _project_qkv(p, cfg, x, positions, mrope_positions)
-    cache_k[:, cache_len] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cache_len] = v[:, 0].to(cache_v.dtype)
-    g = cfg.n_heads // cfg.n_kv_heads
-    qh = _scaled(q.reshape(b, 1, cfg.n_kv_heads, g, cfg.head_dim),
-                 cfg.head_dim)
-    s_ = _scores(qh, cache_k)
-    k_pos = torch.arange(S, device=x.device)[None, :]
-    valid = k_pos <= cache_len
-    if cfg.sliding_window:
-        valid &= k_pos > cache_len - cfg.sliding_window
-    s_ = torch.where(valid, s_, NEG_INF)
-    p_ = torch.softmax(s_, dim=-1).to(cache_v.dtype)
-    o = torch.einsum("bngqk,bknd->bqngd", p_, cache_v)
+    cache_k = lshard(write_kv(cache_k, k, cache_len),
+                     "batch", "kv_seq", "kv_heads", "head_dim")
+    cache_v = lshard(write_kv(cache_v, v, cache_len),
+                     "batch", "kv_seq", "kv_heads", "head_dim")
+    if is_dtensor(cache_k):
+        o = _sharded_decode(cfg, q, cache_k, cache_v, cache_len)
+    else:
+        o = _decode_core(cfg, q, cache_k, cache_v, cache_len)
     out = o.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p.wo
-    return out, cache_k, cache_v
+    return lshard(out, "batch", "seq", "embed"), cache_k, cache_v

@@ -1,4 +1,5 @@
-"""Shared model components: initialisers, norms, activations and RoPE.
+"""Shared model components: logical sharding, initialisers, norms,
+activations and RoPE.
 
 A copy of the reference's ``src/repro/models/common.py`` in PyTorch, with
 the reference's order of operations and casts so that the numbers agree:
@@ -8,18 +9,308 @@ from integer positions, and ``silu`` is ``x * sigmoid(x)`` in the input's
 type.  Initialisers draw from an explicit ``torch.Generator`` on the
 target device.
 
-The reference's logical-axis sharding (``ShardingCtx``, ``lshard``,
-``logical_to_spec``) is not here: the port serves on one card with no
-mesh (``launch/mesh.py`` and ``dist/sharding.py`` are later work).
+Logical-axis sharding, as in the reference: models annotate activations
+and parameters with *logical* axis names, and a ``ShardingCtx`` maps them
+to the axes of a mesh (``DEFAULT_RULES``, dropping mesh axes the mesh
+lacks).  It comes in two halves.  The spec half (``logical_to_spec``,
+``spec_for``) is metadata: it reads only the mesh's axis names, so an
+``AbstractMesh`` (names and sizes, no process group) serves, and it gives
+per tensor dimension the mesh axis (or tuple of axes, or None) that the
+reference's ``PartitionSpec`` holds.  The placement half
+(``spec_to_placements``) turns such a spec into DTensor placements on a
+``DeviceMesh``, and ``lshard`` redistributes a DTensor to them.  Outside
+a context, or on a plain tensor, ``lshard`` is a no-op, so the same model
+code runs on one card and on a mesh.  A mesh's forward runs under
+DTensor's ``implicit_replication``, so the plain tensors a model makes
+itself (positions, masks, zeros) count as replicated.  Where an op has no
+DTensor rule on every PyTorch release, the model either redistributes
+its operands right before it (``replicated``, ``unsharded``; GSPMD does
+the same implicitly) or runs the op sequence on this rank's shards as
+plain tensors and wraps the result (``on_local_rows``, ``from_local``,
+``set_layer``, and the attention and embedding paths), naming the op in
+a comment.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass
+
 import torch
 
-__all__ = ["apply_mrope", "apply_rope", "causal_mask", "dense_init",
-           "embed_init", "resolve_device", "rms_norm", "rope_freqs", "silu",
-           "softplus", "swiglu"]
+__all__ = ["AbstractMesh", "DEFAULT_RULES", "ShardingCtx", "apply_mrope",
+           "apply_rope", "causal_mask", "current_ctx", "dense_init",
+           "embed_init", "from_local", "is_dtensor", "logical_to_spec",
+           "lshard", "mesh_axes", "mesh_region", "on_local_rows", "placed_as",
+           "replicated", "resolve_device", "rms_norm", "rope_freqs",
+           "set_layer", "shard_span", "silu", "softplus", "spec_for",
+           "spec_to_placements", "swiglu", "unsharded"]
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding
+# ---------------------------------------------------------------------------
+
+_ctx = threading.local()
+
+DEFAULT_RULES = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": None,        # GQA kv replicated across the model axis
+    "head_dim": None,
+    "ff": "model",
+    "vocab": "model",
+    "experts": "model",      # expert parallelism
+    "expert_cap": None,
+    "kv_seq": "model",       # decode-time KV cache sequence sharding
+    "ssm_inner": "model",
+    "ssm_heads": "model",    # decode SSM state sharded by heads
+    "ssm_state": None,
+    "opt_zero": "data",      # ZeRO-1 axis for optimizer moments
+    "conv_k": None,
+}
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axis sizes and names without devices or a process group
+    (``jax.sharding.AbstractMesh``): enough for the spec half and for
+    ``dist.sharding``'s trees of specs."""
+
+    shape: tuple
+    mesh_dim_names: tuple
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+
+def mesh_axes(mesh) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or an ``AbstractMesh``."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+class ShardingCtx:
+    """Context manager activating logical->physical sharding on a mesh;
+    re-entrant (the previous context comes back on exit)."""
+
+    def __init__(self, mesh, rules=None):
+        self.mesh = mesh
+        self.rules = dict(DEFAULT_RULES)
+        if rules:
+            self.rules.update(rules)
+
+    def __enter__(self):
+        self._prev = current_ctx()
+        _ctx.current = self
+        return self
+
+    def __exit__(self, *a):
+        _ctx.current = self._prev
+
+
+def current_ctx():
+    return getattr(_ctx, "current", None)
+
+
+def logical_to_spec(axes) -> tuple:
+    """The mesh axis of each logical axis under the current context: a
+    name, a tuple of names, or None (the reference's ``PartitionSpec``
+    entries).  Outside a context, ``()``."""
+    ctx = current_ctx()
+    if ctx is None:
+        return ()
+    names = tuple(ctx.mesh.mesh_dim_names)
+    phys = []
+    for ax in axes:
+        m = ctx.rules.get(ax) if ax is not None else None
+        # drop mesh axes the current mesh doesn't have ("pod" on 2-D)
+        if isinstance(m, tuple):
+            m = tuple(x for x in m if x in names)
+            m = m if m else None
+        elif m is not None and m not in names:
+            m = None
+        phys.append(m)
+    return tuple(phys)
+
+
+def spec_for(axes) -> tuple:
+    """The spec of a parameter with the given logical axes."""
+    return logical_to_spec(axes)
+
+
+def spec_to_placements(spec, mesh) -> list:
+    """DTensor placements on ``mesh`` of a spec: ``Shard(d)`` on every
+    mesh axis that tensor dimension ``d`` names, ``Replicate()`` on the
+    others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, ax in enumerate(spec):
+        for a in (() if ax is None else ax if isinstance(ax, tuple)
+                  else (ax,)):
+            out[names.index(a)] = Shard(dim)
+    return out
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def lshard(x, *axes):
+    """Redistribute the DTensor ``x`` to the logical sharding; a no-op
+    outside a mesh context, for a plain tensor, or on a rank mismatch."""
+    ctx = current_ctx()
+    if ctx is None or x.dim() != len(axes) or not is_dtensor(x):
+        return x
+    target = spec_to_placements(logical_to_spec(axes), x.device_mesh)
+    if list(x.placements) == target:
+        return x
+    return x.redistribute(x.device_mesh, target)
+
+
+def replicated(x):
+    """The DTensor ``x`` redistributed to ``Replicate()`` on every mesh
+    axis (a plain tensor passes): called right before an op that has no
+    DTensor sharding rule for a sharded operand."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return placed_as(x, [Replicate()] * x.device_mesh.ndim)
+
+
+def _on_mesh(x) -> bool:
+    if isinstance(x, torch.nn.Module):
+        x = next(x.parameters(), None)
+    return is_dtensor(x)
+
+
+def shard_span(x, dim: int) -> tuple:
+    """(offset, length) of this rank's piece of dimension ``dim`` of the
+    DTensor ``x``: the mesh axes that shard it, in mesh order, index an
+    even split (the local shard must have that length)."""
+    mesh, coord = x.device_mesh, x.device_mesh.get_coordinate()
+    index, count = 0, 1
+    for md, pl in enumerate(x.placements):
+        if pl.is_shard(dim):
+            index = index * mesh.size(md) + coord[md]
+            count *= mesh.size(md)
+    length = x.shape[dim] // count
+    if x.to_local().shape[dim] != length or x.shape[dim] % count:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split evenly over {count} ranks")
+    return index * length, length
+
+
+def placed_as(x, placements):
+    """The DTensor ``x`` redistributed to ``placements`` (unchanged when it
+    has them already)."""
+    if list(x.placements) == list(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def from_local(local, mesh, placements, shape):
+    """A DTensor of global ``shape`` (contiguous) whose shard on this rank
+    is ``local``; differentiable, no communication."""
+    from torch.distributed.tensor import DTensor
+
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local.contiguous(), mesh, placements,
+                              run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
+def set_layer(dst, i: int, value) -> None:
+    """``dst[i] = value`` in place (a cache's layer slice).  On a mesh
+    each rank writes its own shard: ``value`` placed as ``dst`` without
+    its leading (layer) dimension, which is never sharded."""
+    if not is_dtensor(dst):
+        dst[i] = value
+        return
+    from torch.distributed.tensor import Shard
+
+    if any(p.is_shard(0) for p in dst.placements):
+        raise ValueError("a cache's layer dimension is not sharded")
+    placements = [Shard(p.dim - 1) if p.is_shard() else p
+                  for p in dst.placements]
+    with torch.no_grad():
+        dst.to_local()[i] = placed_as(value, placements).to_local()
+
+
+def on_local_rows(fn, rows, shared=()):
+    """``fn(*rows, *shared)`` on this rank's batch rows, as plain tensors.
+
+    ``rows`` have the batch on dimension 0: on a mesh each is placed with
+    the first DTensor's batch shard only (every other dimension whole);
+    ``shared`` (parameters, no batch dimension) are replicated, and their
+    gradient adds over the ranks that split the batch.  ``fn`` returns a
+    tuple of batch-first tensors, which come back as DTensors with that
+    batch shard.  For an op sequence that is independent across batch
+    rows and has no DTensor rule on every PyTorch release (the SSD scan's
+    cumulative sums, whose backward flips; products whose batch flatten
+    spans two sharded dimensions).  Without a DTensor it is ``fn``."""
+    ref = next((t for t in rows if is_dtensor(t)), None)
+    if ref is None:
+        return fn(*rows, *shared)
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = ref.device_mesh
+    batch = [p if p.is_shard(0) else Replicate() for p in ref.placements]
+    grad = [Partial() if p.is_shard(0) else Replicate() for p in batch]
+    local = [placed_as(t, batch).to_local() if is_dtensor(t) else t
+             for t in rows]
+    local += [placed_as(t, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad) if is_dtensor(t) else t for t in shared]
+    return tuple(from_local(o, mesh, batch, (ref.shape[0], *o.shape[1:]))
+                 for o in fn(*local))
+
+
+def unsharded(x, dim: int):
+    """The DTensor ``x`` with dimension ``dim`` replicated and its other
+    shards kept (a plain tensor passes): for an op with no DTensor rule
+    along a sharded ``dim``."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    dim %= x.dim()
+    return placed_as(x, [Replicate() if p.is_shard(dim) else p
+                         for p in x.placements])
+
+
+def mesh_region(*tensors):
+    """DTensor's ``implicit_replication`` when any of ``tensors`` (or a
+    module's parameters) is a DTensor: the plain
+    tensors a model makes count as replicated there.  Else a null
+    context."""
+    if any(_on_mesh(t) for t in tensors):
+        return _implicit_replication()
+    return nullcontext()
+
+
+@contextmanager
+def _implicit_replication():
+    """``torch.distributed.tensor.experimental.implicit_replication``, but
+    re-entrant: the flag it sets comes back to its previous value on exit
+    (the library's sets it to False), so a forward inside a training
+    step's region leaves the backward pass in it."""
+    from torch.distributed.tensor import DTensor
+
+    dispatcher = DTensor._op_dispatcher
+    prev = dispatcher._allow_implicit_replication
+    dispatcher._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatcher._allow_implicit_replication = prev
 
 
 def resolve_device(device) -> torch.device:
@@ -86,6 +377,7 @@ def softplus(x):
 
 def swiglu(x, w_gate, w_up, w_down):
     h = silu(x @ w_gate) * (x @ w_up)
+    h = lshard(h, "batch", "seq", "ff")
     return h @ w_down
 
 

@@ -34,10 +34,10 @@ import torch
 from torch import nn
 
 from ..kernels import ref
-from .common import dense_init, silu
+from .common import dense_init, is_dtensor, lshard, replicated, silu
 
-__all__ = ["MoE", "SharedExperts", "grayfreq_token_order", "moe_ffn",
-           "padded_experts", "routing_bitmap_words"]
+__all__ = ["MoE", "SharedExperts", "grayfreq_token_order", "moe_axes",
+           "moe_ffn", "padded_experts", "routing_bitmap_words"]
 
 
 def padded_experts(n_experts: int) -> int:
@@ -87,6 +87,23 @@ class MoE(nn.Module):
         self.w_down = dense((ep, ff, d))
         if cfg.n_shared_experts:
             self.shared = SharedExperts(cfg, dtype, device, generator)
+
+
+def moe_axes(cfg):
+    """The logical axes of each MoE parameter."""
+    ax = {
+        "router": ("embed", None),
+        "w_gate": ("experts", "embed", None),
+        "w_up": ("experts", "embed", None),
+        "w_down": ("experts", None, "embed"),
+    }
+    if cfg.n_shared_experts:
+        ax["shared"] = {
+            "w_gate": ("embed", "ff"),
+            "w_up": ("embed", "ff"),
+            "w_down": ("ff", "embed"),
+        }
+    return ax
 
 
 def _stable_argsort(key, dim=-1):
@@ -198,8 +215,17 @@ def moe_ffn(p, cfg, x, capacity_factor=None, route_sort="none",
         capacity_factor = getattr(cfg, "moe_capacity_factor", 1.25)
     T = b * s
     dev = x.device
+    # on a mesh: the token plan's sorts, scatters and gathers (aten.sort,
+    # scatter_, cummax, index.Tensor, gather) index the token dimension,
+    # which DTensor has no rule to shard through, so the tokens are
+    # replicated first; every rank builds the same integer plan from the
+    # replicated expert ids, and only the slot buffer's expert dimension
+    # is sharded ("experts" on the model axis)
+    x = replicated(x)
     xf = x.reshape(T, d)
     eids, gates, logits = _route(p, cfg, xf)
+    if is_dtensor(eids):
+        eids = eids.full_tensor()
 
     if dispatch == "gather":
         cap = int(capacity_factor * s * k / cfg.n_experts + 0.5)
@@ -227,7 +253,12 @@ def moe_ffn(p, cfg, x, capacity_factor=None, route_sort="none",
                                   device=dev).scatter_(1, slot, tok)[:, :-1]
         xpad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
         buf = xpad[torch.arange(b, device=dev)[:, None], tok_for_slot]
-        out = _experts(p, buf.reshape(b, e, cap, d)).reshape(b, e * cap, d)
+        buf = lshard(buf.reshape(b, e, cap, d),
+                     "batch", "experts", "expert_cap", "embed")
+        out = lshard(_experts(p, buf),
+                     "batch", "experts", "expert_cap", "embed")
+        # aten.gather over the expert slots: no rule for a sharded slot dim
+        out = replicated(out).reshape(b, e * cap, d)
         y = _combine(out, _unsort(order, slot).reshape(b, s, k), be,
                      gates.reshape(b, s, k).to(x.dtype)).reshape(T, d)
     else:
@@ -249,7 +280,11 @@ def moe_ffn(p, cfg, x, capacity_factor=None, route_sort="none",
         slot = _slots(a_eid, cap, e)
         buf = x.new_zeros(e * cap + 1, d)
         buf[slot] = xf[tok]  # only the drop slot takes several rows
-        out = _experts(p, buf[:-1].reshape(e, cap, d)).reshape(e * cap, d)
+        buf = lshard(buf[:-1].reshape(e, cap, d),
+                     "experts", "expert_cap", "embed")
+        out = lshard(_experts(p, buf), "experts", "expert_cap", "embed")
+        # aten.gather over the expert slots: no rule for a sharded slot dim
+        out = replicated(out).reshape(e * cap, d)
         y = _combine(out, _unsort(order, slot).reshape(T, k), eids,
                      gates.to(x.dtype))
 
@@ -264,4 +299,4 @@ def moe_ffn(p, cfg, x, capacity_factor=None, route_sort="none",
     load = torch.zeros(cfg.n_experts, device=dev).index_add_(
         0, eids.reshape(-1), torch.ones(T * k, device=dev)) / (T * k)
     aux = cfg.n_experts * torch.sum(load * probs.mean(0))
-    return y, aux
+    return lshard(y, "batch", "seq", "embed"), aux

@@ -24,10 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, rms_norm, silu, softplus
+from .common import (dense_init, is_dtensor, lshard, on_local_rows, rms_norm,
+                     silu, softplus)
 
-__all__ = ["CONV_K", "Mamba2", "mamba2_block", "mamba2_decode",
-           "ssd_chunked"]
+__all__ = ["CONV_K", "Mamba2", "mamba2_axes", "mamba2_block",
+           "mamba2_decode", "ssd_chunked"]
 
 CONV_K = 4  # depthwise causal conv width (mamba2 default)
 
@@ -63,13 +64,37 @@ class Mamba2(nn.Module):
         self.norm_w = const(torch.ones(d_in, dtype=dtype))
 
 
+def mamba2_axes(cfg):
+    """The logical axes of each Mamba2 mixer parameter."""
+    return {
+        "w_in": ("embed", "ssm_inner"),
+        "conv_w": ("conv_k", "ssm_inner"),
+        "conv_b": ("ssm_inner",),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm_w": ("ssm_inner",),
+        "w_out": ("ssm_inner", "embed"),
+    }
+
+
+def _pad_seq(x, before: int, after: int):
+    """``x`` zero-padded on its sequence dimension (1): ``F.pad``, or on a
+    mesh a concatenation of zero rows (the pad rule of some PyTorch
+    releases mis-sizes a DTensor's padded dimension)."""
+    if not is_dtensor(x):
+        return F.pad(x, (0, 0) * (x.dim() - 2) + (before, after))
+    z = torch.zeros_like(x[:, :1])
+    return torch.cat([z] * before + [x] + [z] * after, dim=1)
+
+
 def _causal_conv(xBC, conv_w, conv_b):
     """Depthwise causal conv over seq: xBC (b, s, C), conv_w (K, C)."""
     K = conv_w.shape[0]
     s = xBC.shape[1]
     out = xBC * conv_w[K - 1]
     for i in range(1, K):
-        shifted = F.pad(xBC, (0, 0, i, 0))[:, :s]
+        shifted = _pad_seq(xBC[:, :max(s - i, 0)], min(i, s), 0)
         out = out + shifted * conv_w[K - 1 - i]
     return silu(out + conv_b)
 
@@ -151,7 +176,8 @@ def _mamba2(p, cfg, x):
     z = zxbcdt[..., :d_in]
     xBC = zxbcdt[..., d_in:d_in + d_in + 2 * ng * N]
     # the decode tail: the last K-1 inputs, zeros before a short prompt
-    tail = F.pad(xBC, (0, 0, max(0, CONV_K - 1 - s), 0))[:, -(CONV_K - 1):]
+    tail = _pad_seq(xBC[:, max(0, s - (CONV_K - 1)):],
+                    max(0, CONV_K - 1 - s), 0)
     xBC1 = _causal_conv(xBC, p.conv_w, p.conv_b)
     xs = xBC1[..., :d_in].reshape(b, s, nh, hp)
     B = xBC1[..., d_in:d_in + ng * N].reshape(b, s, ng, N)
@@ -160,14 +186,16 @@ def _mamba2(p, cfg, x):
     A = -torch.exp(p.A_log)
     pad = (-s) % cfg.ssm_chunk
     if pad:
-        xs = F.pad(xs, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, 0, 0, pad))
-    y, S = ssd_chunked(xs.float(), dt, A, B.float(), C.float(), p.D,
-                       cfg.ssm_chunk)
+        xs, dt, B, C = (_pad_seq(t, 0, pad) for t in (xs, dt, B, C))
+    # on a mesh the scan runs on each rank's batch rows (torch.cumsum's
+    # backward flips, and aten.flip has no DTensor rule on every release)
+    y, S = on_local_rows(
+        lambda xs, dt, B, C, A, D: ssd_chunked(
+            xs.float(), dt, A, B.float(), C.float(), D, cfg.ssm_chunk),
+        (xs, dt, B, C), (A, p.D))
     y = y[:, :s].reshape(b, s, d_in).to(x.dtype)
     y = rms_norm(y * silu(z), p.norm_w)
+    y = lshard(y, "batch", "seq", "ssm_inner")
     return y @ p.w_out, tail, S
 
 
@@ -198,17 +226,27 @@ def mamba2_decode(p, cfg, x, conv_state, ssm_state):
     xs = xBC1[..., :d_in].reshape(b, nh, hp)
     B = xBC1[..., d_in:d_in + ng * N].reshape(b, ng, N)
     C = xBC1[..., d_in + ng * N:].reshape(b, ng, N)
-    dt = softplus(dt[:, 0].float() + p.dt_bias)  # (b, h)
-    A = -torch.exp(p.A_log)
-    dA = torch.exp(dt * A)
-    rep = nh // ng
-    Bh = torch.repeat_interleave(B, rep, dim=1).float()  # (b, h, N)
-    Ch = torch.repeat_interleave(C, rep, dim=1).float()
-    xdt = xs * dt[..., None]  # (b, h, p) float32
-    new_state = (ssm_state * dA[..., None, None]
-                 + torch.einsum("bhp,bhN->bhpN", xdt, Bh))
-    y = (torch.einsum("bhpN,bhN->bhp", new_state, Ch)
-         + xs * p.D[None, :, None])
+
+    def update(xs, dt, B, C, ssm_state, dt_bias, A_log, D):
+        dt = softplus(dt[:, 0].float() + dt_bias)  # (b, h)
+        A = -torch.exp(A_log)
+        dA = torch.exp(dt * A)
+        rep = nh // ng
+        Bh = torch.repeat_interleave(B, rep, dim=1).float()  # (b, h, N)
+        Ch = torch.repeat_interleave(C, rep, dim=1).float()
+        xdt = xs * dt[..., None]  # (b, h, p) float32
+        new_state = (ssm_state * dA[..., None, None]
+                     + torch.einsum("bhp,bhN->bhpN", xdt, Bh))
+        y = (torch.einsum("bhpN,bhN->bhp", new_state, Ch)
+             + xs * D[None, :, None])
+        return y, new_state
+
+    # on a mesh the update runs on each rank's batch rows: its products'
+    # batch flatten spans two sharded dimensions (batch, "ssm_heads"),
+    # which has no view rule on every PyTorch release
+    y, new_state = on_local_rows(update, (xs, dt, B, C, ssm_state),
+                                 (p.dt_bias, p.A_log, p.D))
+    new_state = lshard(new_state, "batch", "ssm_heads", None, None)
     y = y.reshape(b, 1, d_in).to(x.dtype)
     y = rms_norm(y * silu(z), p.norm_w)
     return y @ p.w_out, new_conv_state, new_state

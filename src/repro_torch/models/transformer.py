@@ -44,11 +44,14 @@ from torch import nn
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import dense_init, embed_init, resolve_device, rms_norm, swiglu
+from .common import (dense_init, embed_init, from_local, is_dtensor,
+                     logical_to_spec, lshard, mesh_region, placed_as,
+                     resolve_device, rms_norm, set_layer, shard_span,
+                     spec_to_placements, swiglu)
 
-__all__ = ["FFN", "Layer", "SharedBlock", "Transformer", "decode_step",
-           "forward", "init_decode_cache", "init_params", "n_params",
-           "n_shared_slots"]
+__all__ = ["FFN", "Layer", "SharedBlock", "Transformer", "cache_axes",
+           "decode_step", "forward", "init_decode_cache", "init_params",
+           "layer_axes", "n_params", "n_shared_slots", "params_axes"]
 
 
 def _dtype(cfg):
@@ -152,6 +155,52 @@ def init_params(cfg, *, device=None, generator=None) -> Transformer:
     return Transformer(cfg, device=device, generator=generator)
 
 
+_FFN_AXES = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+             "w_down": ("ff", "embed")}
+
+
+def layer_axes(cfg):
+    """The logical axes of one layer's parameters, as a nested dict."""
+    ax = {"ln1": ("embed",)}
+    if _ssm(cfg):
+        ax["mixer"] = ssm_mod.mamba2_axes(cfg)
+        return ax
+    ax["mixer"] = attn.attention_axes(cfg)
+    ax["ln2"] = ("embed",)
+    ax["ffn"] = moe_mod.moe_axes(cfg) if cfg.family == "moe" else \
+        dict(_FFN_AXES)
+    return ax
+
+
+def _named(tree, prefix=""):
+    """``{"a.b": axes}`` of a nested dict of axes tuples."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            out.update(_named(sub, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = sub
+    return out
+
+
+def params_axes(cfg):
+    """``{state_dict name: logical axes}`` mirroring ``init_params(cfg)``.
+    The reference stacks the layers and gives each layer leaf a leading
+    None; here each ``layers.{i}.*`` leaf takes ``layer_axes`` as is."""
+    axes = {"embed": ("vocab", "embed")}
+    per_layer = _named(layer_axes(cfg))
+    for i in range(cfg.n_layers):
+        axes.update({f"layers.{i}.{n}": a for n, a in per_layer.items()})
+    axes["ln_f"] = ("embed",)
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    if cfg.family == "hybrid" and cfg.attn_every:
+        axes.update(_named({
+            "ln1": ("embed",), "attn": attn.attention_axes(cfg),
+            "ln2": ("embed",), "ffn": dict(_FFN_AXES)}, "shared_attn."))
+    return axes
+
+
 def n_params(params) -> int:
     return sum(p.numel() for p in params.parameters())
 
@@ -191,17 +240,51 @@ def _head(params, cfg):
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
+def _sharded_lookup(table, ids):
+    """Rows of a DTensor ``table`` (vocab, d) for token ids (b, s), on
+    local shards: each rank looks up the ids that fall in its vocab rows
+    (zeros for the others), and the rows add over the ranks that split
+    the vocab (a partial sum, which the next ``lshard`` reduces).  Neither
+    aten.index's backward (index_put) nor aten.embedding's masked partial
+    sum has a DTensor rule that works on every PyTorch release."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = table.device_mesh
+    if is_dtensor(ids):
+        # the ids are whole where the table splits its vocab
+        ids = placed_as(ids, [Replicate() if tp.is_shard(0) else ip
+                              for tp, ip in zip(table.placements,
+                                                ids.placements)])
+        id_pl, local_ids = list(ids.placements), ids.to_local()
+    else:
+        id_pl, local_ids = [Replicate()] * mesh.ndim, ids
+    # a rank's table gradient covers its own rows of the batch
+    grad = [tp if tp.is_shard(0) else Partial() if ip.is_shard()
+            else Replicate() for tp, ip in zip(table.placements, id_pl)]
+    off, n = shard_span(table, 0)
+    idx = local_ids.long() - off
+    hit = ((idx >= 0) & (idx < n))[..., None]
+    rows = table.to_local(grad_placements=grad)[idx.clamp(0, n - 1)]
+    rows = torch.where(hit, rows, torch.zeros((), dtype=rows.dtype,
+                                               device=rows.device))
+    out = [Partial() if tp.is_shard(0) else ip
+           for tp, ip in zip(table.placements, id_pl)]
+    return from_local(rows, mesh, out, (*ids.shape, table.shape[1]))
+
+
 def _embed(params, cfg, inputs, patches=None):
     """Token ids (b, s) -> embeddings; (b, s, d) embeddings pass through
     in the model's type.  ``patches`` (b, P, d) replace the first P
     positions."""
-    if inputs.dim() == 2:
+    if inputs.dim() == 2 and is_dtensor(params.embed):
+        x = _sharded_lookup(params.embed, inputs)
+    elif inputs.dim() == 2:
         x = params.embed[inputs.long()]
     else:
         x = inputs.to(_dtype(cfg))
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x[:, patches.shape[1]:]], dim=1)
-    return x
+    return lshard(x, "batch", "seq", "embed")
 
 
 def _add_sinusoid(x, positions, cfg):
@@ -260,7 +343,14 @@ def forward(params, cfg, inputs, positions=None, mrope_positions=None,
     ``mrope_positions`` (3, b, s) int; ``patches`` (b, P, d) frontend
     embeddings written over the first P positions.  Returns (logits (b, s,
     padded_vocab), aux), aux the MoE layers' summed load-balancing loss
-    (0 for the other families)."""
+    (0 for the other families).  On a mesh (DTensor parameters) it runs
+    under ``mesh_region``."""
+    with mesh_region(params, inputs):
+        return _forward(params, cfg, inputs, positions, mrope_positions,
+                        patches)
+
+
+def _forward(params, cfg, inputs, positions, mrope_positions, patches):
     x = _embed(params, cfg, inputs, patches)
     b, s = x.shape[:2]
     if positions is None:
@@ -276,7 +366,7 @@ def forward(params, cfg, inputs, positions=None, mrope_positions=None,
         if shared_after:
             x = _shared_apply(params.shared_attn, cfg, x, positions)
     x = rms_norm(x, params.ln_f)
-    return x @ _head(params, cfg), aux
+    return lshard(x @ _head(params, cfg), "batch", "seq", "vocab"), aux
 
 
 # ---------------------------------------------------------------------------
@@ -284,17 +374,27 @@ def forward(params, cfg, inputs, positions=None, mrope_positions=None,
 # ---------------------------------------------------------------------------
 
 
-def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
+def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device=None,
+                      mesh=None):
     """Zeros; ``device=None`` is the card.  Attention: K/V (layers, b, S,
     kvh, hd).  ssm / hybrid: the conv tail (layers, b, K-1, conv_dim) in
     ``dtype`` and the state (layers, b, h, p, N) in float32, and for the
     hybrid K/V (slots, b, S, kvh, hd), one slot a shared-block
-    application."""
+    application.  With a ``DeviceMesh``, each leaf is a DTensor placed by
+    ``cache_axes`` under the current ``ShardingCtx`` (each rank allocates
+    its own shard only)."""
     device = resolve_device(device)
     dtype = dtype or _dtype(cfg)
+    axes = cache_axes(cfg)
 
-    def zeros(shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def zeros(shape, dt=dtype, name=None):
+        if mesh is None:
+            return torch.zeros(shape, dtype=dt, device=device)
+        from torch.distributed.tensor import zeros as dzeros
+
+        return dzeros(shape, dtype=dt, device_mesh=mesh,
+                      placements=spec_to_placements(
+                          logical_to_spec(axes[name]), mesh))
 
     cache = {}
     kv_layers = cfg.n_layers
@@ -303,16 +403,31 @@ def init_decode_cache(cfg, batch: int, max_len: int, dtype=None, device=None):
         conv_dim = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
         hp = d_in // cfg.ssm_heads
         cache["conv"] = zeros((cfg.n_layers, batch, ssm_mod.CONV_K - 1,
-                               conv_dim))
+                               conv_dim), name="conv")
         cache["state"] = zeros((cfg.n_layers, batch, cfg.ssm_heads, hp,
-                                cfg.ssm_state), torch.float32)
+                                cfg.ssm_state), torch.float32, "state")
         if cfg.family != "hybrid":
             return cache
         kv_layers = n_shared_slots(cfg)
     shape = (kv_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    cache["k"] = zeros(shape)
-    cache["v"] = zeros(shape)
+    cache["k"] = zeros(shape, name="k")
+    cache["v"] = zeros(shape, name="v")
     return cache
+
+
+def cache_axes(cfg):
+    """The logical axes of each ``init_decode_cache`` leaf."""
+    ax = {}
+    if _ssm(cfg):
+        ax["conv"] = (None, "batch", None, "ssm_inner")
+        # state (layers, b, heads, p, N): heads across the model axis, so
+        # the recurrent update is shard-local
+        ax["state"] = (None, "batch", "ssm_heads", None, None)
+        if cfg.family != "hybrid":
+            return ax
+    ax["k"] = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+    ax["v"] = (None, "batch", "kv_seq", "kv_heads", "head_dim")
+    return ax
 
 
 def _decode_attn_block(lp, cfg, x, ck, cv, cache_len):
@@ -334,7 +449,11 @@ def decode_step(params, cfg, tokens, cache, cache_len):
     ``cache_len`` (an int, the same for every row) is where the new K/V
     go.  Updates ``cache`` in place and returns (logits (b, vocab),
     cache)."""
-    cache_len = int(cache_len)
+    with mesh_region(params, tokens):
+        return _decode_step(params, cfg, tokens, cache, int(cache_len))
+
+
+def _decode_step(params, cfg, tokens, cache, cache_len):
     x = _embed(params, cfg, tokens)
     if _ssm(cfg):
         slot = 0
@@ -344,8 +463,8 @@ def decode_step(params, cfg, tokens, cache, cache_len):
                 h = rms_norm(x, lp.ln1)
                 mix, conv, state = ssm_mod.mamba2_decode(
                     lp.mixer, cfg, h, cache["conv"][i], cache["state"][i])
-                cache["conv"][i] = conv
-                cache["state"][i] = state
+                set_layer(cache["conv"], i, conv)
+                set_layer(cache["state"], i, state)
                 x = x + mix
             if shared_after:
                 sp = params.shared_attn
@@ -360,4 +479,4 @@ def decode_step(params, cfg, tokens, cache, cache_len):
             x, _, _ = _decode_attn_block(lp, cfg, x, cache["k"][i],
                                          cache["v"][i], cache_len)
     x = rms_norm(x, params.ln_f)
-    return (x @ _head(params, cfg))[:, 0], cache
+    return lshard((x @ _head(params, cfg))[:, 0], "batch", "vocab"), cache

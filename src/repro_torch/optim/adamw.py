@@ -12,12 +12,21 @@ and in its order: the warm-up ratio, the cosine, ``b1 ** step``, the
 decoupled weight decay, and the new parameter cast back to its type.
 
 ZeRO-1 moment storage: ``init_opt_state(params, zero_pad=d)`` with d > 1
-stores "m"/"v" leaves **1-D flattened and zero-padded** to a multiple of d,
-as the reference does for its data-parallel shards (one card uses
-``zero_pad=1``; meshes are later work).  ``apply_updates`` detects flat
-leaves by shape, reshapes them to the parameter shape for the update math,
-and re-pads on the way out, so flat and param-shaped states compute
-identical updates.
+stores "m"/"v" leaves **1-D flattened and zero-padded** to a multiple of d
+(the data-axis size, ``dist.sharding.zero_pad_for``), as the reference
+does for its data-parallel shards; one card uses ``zero_pad=1``.
+``apply_updates`` detects flat leaves by shape, reshapes them to the
+parameter shape for the update math, and re-pads on the way out, so flat
+and param-shaped states compute identical updates.
+
+On a mesh the parameters, gradients and moments are DTensors
+(``dist.sharding.opt_shardings``) and every element's arithmetic is the
+one above, on local shards.  A param-shaped moment is placed as its
+parameter, and the update runs on the three local shards.  A flat moment
+is ``Shard(0)`` on the ZeRO axis: each rank takes its slice of the
+flattened, zero-padded parameter and gradient, updates that slice of the
+moments, and the new parameter slices are gathered back into the
+parameter's own placement.  The padding lanes stay exactly 0.
 
 ``apply_updates`` writes the new values into the parameters in place,
 under ``torch.no_grad()`` only (autograd's version counters still see the
@@ -32,6 +41,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from ..models.common import from_local, is_dtensor, placed_as, shard_span
 from ..pytree import tree_leaves
 
 __all__ = ["OptConfig", "apply_updates", "global_norm", "init_opt_state",
@@ -103,9 +113,12 @@ def lr_schedule(cfg: OptConfig, step):
 
 
 def global_norm(tree):
-    """sqrt of the sum of every leaf's squares, in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in float32 (a plain
+    tensor; DTensor leaves add their shards' sums)."""
+    total = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if is_dtensor(total):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 def apply_updates(cfg: OptConfig, params, grads, state):
@@ -113,7 +126,8 @@ def apply_updates(cfg: OptConfig, params, grads, state):
     dict of tensors, in place) and returns (params, new_state, metrics).
     ``grads`` is ``{name: tensor}`` for every parameter."""
     named = named_params(params)
-    step = state["step"] + 1
+    new_step = state["step"] + 1
+    step = new_step.full_tensor() if is_dtensor(new_step) else new_step
     gnorm = global_norm(grads)
     # a Python float over a tensor is the tensor's reciprocal times it in
     # PyTorch; the reference divides
@@ -147,13 +161,45 @@ def apply_updates(cfg: OptConfig, params, grads, state):
             v = F.pad(v.reshape(-1), pad)
         return new_p, m, v
 
+    def upd_sharded(p, g, m, v):
+        """``upd`` on a mesh, on local shards: writes the parameter's
+        shard and returns the moments as DTensors."""
+        def placed(local, like):
+            return from_local(local, like.device_mesh, like.placements,
+                              like.shape)
+
+        if m.shape == p.shape and list(m.placements) == list(p.placements):
+            new_p, m_l, v_l = upd(p.to_local(),
+                                  placed_as(g, p.placements).to_local(),
+                                  m.to_local(), v.to_local())
+            p.to_local().copy_(new_p)
+            return placed(m_l, m), placed(v_l, v)
+        # flat ZeRO-1: this rank's slice of the flattened, zero-padded
+        # parameter and gradient, updated against its moment slice
+        off, n = shard_span(m, 0)
+        pad = (0, m.shape[0] - p.numel())
+        p_sl = F.pad(p.full_tensor().reshape(-1), pad)[off:off + n]
+        g_sl = F.pad(g.full_tensor().reshape(-1), pad)[off:off + n]
+        new_sl, m_l, v_l = upd(p_sl, g_sl, m.to_local(), v.to_local())
+        new_p = placed(new_sl, m).full_tensor()[:p.numel()].reshape(p.shape)
+        # the whole new parameter, cut to this rank's shard (no exchange)
+        from torch.distributed.tensor import Replicate
+
+        whole = from_local(new_p, p.device_mesh,
+                           [Replicate()] * p.device_mesh.ndim, p.shape)
+        p.to_local().copy_(placed_as(whole, p.placements).to_local())
+        return placed(m_l, m), placed(v_l, v)
+
     new_m, new_v = {}, {}
     with torch.no_grad():
         for name, p in named.items():
-            new_p, new_m[name], new_v[name] = upd(
-                p, grads[name], state["m"][name], state["v"][name])
+            m, v = state["m"][name], state["v"][name]
+            if is_dtensor(m):
+                new_m[name], new_v[name] = upd_sharded(p, grads[name], m, v)
+                continue
+            new_p, new_m[name], new_v[name] = upd(p, grads[name], m, v)
             p.copy_(new_p)
-    new_state = {"m": new_m, "v": new_v, "step": step}
+    new_state = {"m": new_m, "v": new_v, "step": new_step}
     for k in state:
         if k not in new_state:
             new_state[k] = state[k]  # pass through extra keys (e.g. "ef")

@@ -14,8 +14,9 @@ import torch
 
 from ..models import ssm as ssm_mod
 from ..models import transformer
-from ..models.attention import attention
-from ..models.common import rms_norm, swiglu
+from ..models.attention import attention, write_kv
+from ..models.common import (is_dtensor, mesh_region, rms_norm, set_layer,
+                             swiglu)
 from ..models.moe import moe_ffn
 
 __all__ = ["prefill_with_cache"]
@@ -31,15 +32,26 @@ def _ssm_tail_state(p, cfg, h):
 def prefill_with_cache(params, cfg, tokens, max_len: int,
                        mrope_positions=None, patches=None):
     """tokens: (b, s) ids (or (b, s, d) embeddings).  Returns
-    (next_token_logits (b, V), cache)."""
+    (next_token_logits (b, V), cache).  On a mesh (DTensor parameters and
+    tokens) the cache is made as DTensors placed by
+    ``transformer.cache_axes`` under the current ``ShardingCtx``."""
     b, s = tokens.shape[:2]
     if s > max_len:
         raise ValueError(f"a prompt of {s} tokens exceeds max_len {max_len}")
+    with mesh_region(params, tokens):
+        return _prefill(params, cfg, tokens, max_len, mrope_positions,
+                        patches)
+
+
+def _prefill(params, cfg, tokens, max_len, mrope_positions, patches):
+    b, s = tokens.shape[:2]
     x = transformer._embed(params, cfg, tokens, patches)
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     x = transformer._add_sinusoid(x, positions, cfg)
-    cache = transformer.init_decode_cache(cfg, b, max_len, device=x.device)
+    cache = transformer.init_decode_cache(
+        cfg, b, max_len, device=x.device,
+        mesh=x.device_mesh if is_dtensor(x) else None)
 
     if cfg.family in ("ssm", "hybrid"):
         slot = 0
@@ -49,8 +61,8 @@ def prefill_with_cache(params, cfg, tokens, max_len: int,
                 h = rms_norm(x, lp.ln1)
                 # one pass gives the mixer's output and its final state
                 mix, tail, state = ssm_mod._mamba2(lp.mixer, cfg, h)
-                cache["conv"][i] = tail
-                cache["state"][i] = state
+                set_layer(cache["conv"], i, tail)
+                set_layer(cache["state"], i, state)
                 x = x + mix
             if shared_after:
                 sp = params.shared_attn
@@ -58,8 +70,8 @@ def prefill_with_cache(params, cfg, tokens, max_len: int,
                 o, k, v = attention(sp.attn, cfg, h, positions,
                                     impl=cfg.attn_impl, return_kv=True)
                 x = transformer._shared_ffn(sp, x + o)
-                cache["k"][slot, :, :s] = k
-                cache["v"][slot, :, :s] = v
+                write_kv(cache["k"][slot], k, 0)
+                write_kv(cache["v"][slot], v, 0)
                 slot += 1
     else:
         for i, lp in enumerate(params.layers):
@@ -74,7 +86,7 @@ def prefill_with_cache(params, cfg, tokens, max_len: int,
             else:
                 y = swiglu(h, lp.ffn.w_gate, lp.ffn.w_up, lp.ffn.w_down)
             x = x + y
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            write_kv(cache["k"][i], k, 0)
+            write_kv(cache["v"][i], v, 0)
     x = rms_norm(x, params.ln_f)
     return x[:, -1] @ transformer._head(params, cfg), cache

@@ -8,7 +8,15 @@ a parameter the loss does not reach gets zeros, as ``jax.grad`` gives it.
 with the new optimizer state.  The two accumulation modes keep the
 reference's numerics: ``accum="unroll"`` adds the microbatch gradients in
 their own type (bfloat16 for a bfloat16 model), ``accum="scan"`` into
-float32 zeros.  There is no mesh: ``grad_shardings`` must be None.
+float32 zeros.
+
+On a mesh the parameters and the batch are DTensors (``dist.sharding``)
+and the step runs under a ``ShardingCtx``: the microbatch split keeps the
+batch shard (``lshard(y, None, "batch", ...)``), and each microbatch's
+gradients and their sum are redistributed to ``grad_shardings`` (default:
+each parameter's own placement), which reduces the data-parallel partial
+sums, as the reference's sharding constraints do.  The metrics come back
+as plain tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +25,10 @@ import torch
 
 from .. import convert
 from ..models import transformer
-from ..optim.adamw import OptConfig, apply_updates
+from ..dist.sharding import gather
+from ..models.common import (is_dtensor, lshard, mesh_region, placed_as,
+                             unsharded)
+from ..optim.adamw import OptConfig, apply_updates, named_params
 from ..optim.compress import compress_grads
 
 __all__ = ["cross_entropy", "eval_step", "loss_fn", "prefill_step",
@@ -26,7 +37,11 @@ __all__ = ["cross_entropy", "eval_step", "loss_fn", "prefill_step",
 
 def cross_entropy(logits, labels, mask=None):
     """Token-level CE. logits (b, s, V) any float type; labels (b, s) int."""
-    logits = logits.float()
+    # on a mesh, aten.gather along a vocab dimension sharded over the
+    # model axis has no working rule (its masked partial sum fails to
+    # reduce): the vocab dimension is replicated first, the batch shard
+    # kept
+    logits = unsharded(logits.float(), -1)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = logz - gold
@@ -52,38 +67,72 @@ def loss_fn(params, cfg, batch, aux_weight=0.01):
 def _grads(params, cfg, batch):
     """({name: gradient}, loss, aux) of one (micro)batch."""
     named = list(params.named_parameters())
-    total, (loss, aux) = loss_fn(params, cfg, batch)
-    gs = torch.autograd.grad(total, [p for _, p in named], allow_unused=True)
+    with mesh_region(batch["inputs"], named[0][1]):
+        total, (loss, aux) = loss_fn(params, cfg, batch)
+        gs = torch.autograd.grad(total, [p for _, p in named],
+                                 allow_unused=True)
     grads = {n: torch.zeros_like(p) if g is None else g
              for (n, p), g in zip(named, gs)}
     return grads, loss.detach(), aux.detach()
 
 
-def _microbatch(batch, microbatches, i):
-    """The i-th of ``microbatches`` equal slices of every batch entry:
-    along dimension 0 where it is the batch, else along dimension 1 (a
-    leading non-batch dimension, e.g. mrope_positions (3, B, S))."""
+def _microbatches(batch, microbatches):
+    """``microbatches`` equal slices of every batch entry, in order: along
+    dimension 0 where it is the batch, else along dimension 1 (a leading
+    non-batch dimension, e.g. mrope_positions (3, B, S)).  Each entry is
+    reshaped to (microbatches, B / microbatches, ...) and keeps its
+    data-parallel shard on the new batch dimension."""
     B = batch["inputs"].shape[0]
 
-    def cut(x):
+    def split(x):
+        # on a mesh, aten.view has no rule to split a batch dimension
+        # sharded over more ranks than there are microbatches: the batch
+        # dimension (token ids, small) is gathered first, and lshard cuts
+        # each rank's rows of every microbatch out of it
         if x.shape[0] == B:
-            m = B // microbatches
-            return x[i * m:(i + 1) * m]
-        m = x.shape[1] // microbatches
-        return x[:, i * m:(i + 1) * m]
+            x = unsharded(x, 0)
+            y = x.reshape(microbatches, B // microbatches, *x.shape[1:])
+            axes = (None, "batch") + (None,) * (y.dim() - 2)
+        else:
+            x = unsharded(x, 1)
+            y = x.reshape(x.shape[0], microbatches, B // microbatches,
+                          *x.shape[2:]).movedim(1, 0)
+            axes = (None, None, "batch") + (None,) * (y.dim() - 3)
+        return lshard(y, *axes)
 
-    return {k: cut(v) for k, v in batch.items()}
+    split_batch = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in split_batch.items()}
+            for i in range(microbatches)]
+
+
+def _constrain(grads, params, grad_shardings):
+    """On a mesh, each gradient redistributed to ``grad_shardings[name]``
+    (default: its parameter's placement); plain tensors pass."""
+    if not any(is_dtensor(g) for g in grads.values()):
+        return grads
+    return {n: placed_as(g, params[n].placements if grad_shardings is None
+                         else grad_shardings[n].placements)
+            for n, g in grads.items()}
 
 
 def _compress(grads, ef, cfg):
     """``compress_grads`` with the reference's per-tensor scales: its layer
     leaves are stacked, so one scale covers a leaf of every layer.  The
-    gradients and residuals go through the reference's tree and back."""
+    gradients and residuals go through the reference's tree and back (on
+    a mesh, gathered and placed again as they came)."""
     device = next(iter(grads.values())).device
     deq, new_ef = compress_grads(convert.params_to_reference(grads),
                                  convert.params_to_reference(ef))
-    return (convert.params_from_reference(deq, cfg, device),
-            convert.params_from_reference(new_ef, cfg, device))
+    deq = convert.params_from_reference(deq, cfg, device)
+    new_ef = convert.params_from_reference(new_ef, cfg, device)
+    for tree, like in ((deq, grads), (new_ef, ef)):
+        for n, t in like.items():
+            if is_dtensor(t):
+                from torch.distributed.tensor import distribute_tensor
+
+                tree[n] = distribute_tensor(tree[n], t.device_mesh,
+                                            t.placements)
+    return deq, new_ef
 
 
 def train_step(params, opt_state, batch, *, cfg, opt_cfg: OptConfig,
@@ -96,23 +145,32 @@ def train_step(params, opt_state, batch, *, cfg, opt_cfg: OptConfig,
     accum="unroll" adds the per-microbatch gradients in their own type;
     accum="scan" (the reference folds the microbatches into ``lax.scan``)
     adds them into float32 zeros.  Both divide by ``microbatches`` after
-    the sum.  ``grad_shardings`` constrains the reference's gradients to
-    its ZeRO moment shardings; one card has none, and it must be None.
-    With ``opt_state["ef"]`` the gradients go through the int8
-    error-feedback compressor first, one scale per leaf of the
-    reference's tree (a layer leaf's scale spans every layer)."""
-    if grad_shardings is not None:
-        raise ValueError("grad_shardings: the port trains on one card "
-                         "without a mesh; pass None")
+    the sum.  ``grad_shardings`` (``{name: NamedSharding}``, e.g. the ZeRO
+    moment shardings ``opt_shardings(...)["m"]``) places the gradients on
+    a mesh, per microbatch and after the sum; without it each gradient
+    takes its parameter's placement.  With ``opt_state["ef"]`` the
+    gradients go through the int8 error-feedback compressor first, one
+    scale per leaf of the reference's tree (a layer leaf's scale spans
+    every layer)."""
+    named = named_params(params)
+    if grad_shardings is not None and not any(
+            is_dtensor(p) for p in named.values()):
+        raise ValueError("grad_shardings: the parameters lie on one card, "
+                         "not on a mesh; pass None")
     if microbatches == 1:
         grads, loss, aux = _grads(params, cfg, batch)
+        grads = _constrain(grads, named, grad_shardings)
     else:
         unroll = accum == "unroll"
         grads = None
         loss = aux = 0.0 if unroll else torch.zeros(
             (), device=batch["inputs"].device)
-        for i in range(microbatches):
-            g, l, a = _grads(params, cfg, _microbatch(batch, microbatches, i))
+        for mbatch in _microbatches(batch, microbatches):
+            g, l, a = _grads(params, cfg, mbatch)
+            # reduce(-scatter) per microbatch, as the reference's ZeRO
+            # accumulation does
+            g = _constrain(g, named, grad_shardings)
+            l, a = gather(l), gather(a)
             if grads is None:
                 grads = (g if unroll else
                          {n: x.float() for n, x in g.items()})
@@ -122,6 +180,7 @@ def train_step(params, opt_state, batch, *, cfg, opt_cfg: OptConfig,
             loss, aux = loss + l, aux + a
         grads = {n: g / microbatches for n, g in grads.items()}
         loss, aux = loss / microbatches, aux / microbatches
+        grads = _constrain(grads, named, grad_shardings)
 
     if "ef" in opt_state:
         # int8 error-feedback compression of the cross-pod gradient sync
@@ -131,7 +190,7 @@ def train_step(params, opt_state, batch, *, cfg, opt_cfg: OptConfig,
         opt_state = dict(opt_state, ef=new_ef)
     params, new_opt, metrics = apply_updates(opt_cfg, params, grads,
                                              opt_state)
-    metrics.update({"loss": loss, "aux_loss": aux})
+    metrics.update({"loss": gather(loss), "aux_loss": gather(aux)})
     return params, new_opt, metrics
 
 

@@ -360,8 +360,9 @@ def test_opt_state_round_trip(arch):
 
 
 def test_flat_moments_are_not_converted():
-    """ZeRO-1 flat moments (``zero_pad > 1``) belong to a mesh: the
-    converters refuse them rather than stack a wrong layout."""
+    """ZeRO-1 flat moments (``zero_pad > 1``) on plain tensors carry no
+    record of their multiple: the converter refuses them without
+    ``zero_pad`` rather than guess a wrong layout."""
     model = transformer.init_params(
         configs.get_config("tinyllama-1.1b").smoke(), device="cpu")
     with pytest.raises(ValueError, match="ZeRO-1"):

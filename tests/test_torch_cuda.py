@@ -1,5 +1,5 @@
-"""The port's CUDA kernels, ``TorchBackend``, the serving launcher and
-the training path on the card.
+"""The port's CUDA kernels, ``TorchBackend``, the serving launcher,
+the training path and a one-rank NCCL mesh on the card.
 
 Every test here is marked ``cuda`` and skips (with its reason) where there
 is no NVIDIA GPU or no nvcc; on a machine with one, run
@@ -1169,3 +1169,107 @@ def test_train_launcher_on_card(dev, tmp_path):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
     more = train.main(["--steps", "8", "--ckpt-dir", d, "--resume"])
     assert [m["step"] for m in more] == [6, 7]
+
+
+@pytest.fixture(scope="module")
+def mesh11():
+    """A 1x1 ("data", "model") mesh on one NCCL rank, its group destroyed
+    after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh = mesh_mod.make_debug_mesh(1, 1, device_type="cuda")
+    yield mesh
+    mesh_mod.shutdown()
+
+
+def test_mesh_train_step_on_card_matches_unsharded(dev, mesh11):
+    """float32 ``train_step`` at microbatches 2 with the ZeRO moment
+    shardings as gradient shardings, on the 1x1 NCCL mesh (DTensor
+    parameters, moments and batch), against the unsharded call on the
+    card from the same weights, moments and batch: one rank runs the same
+    kernels, so losses, parameters and moments agree to 1e-6."""
+    import copy
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.train import place_state
+    from repro_torch.models.common import ShardingCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import train_step
+
+    assert dist.get_backend() == "nccl"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, cpu, card = lm_pair("tinyllama-1.1b", "float32", dev)
+    placed = copy.deepcopy(card)
+    r = np.random.default_rng(7)
+    host = {k: torch.from_numpy(r.integers(0, cfg.vocab_size, (4, 32))
+                                .astype(np.int32)).to(dev)
+            for k in ("inputs", "labels")}
+    _, opt = card_state(cfg, cpu, dev, 6)
+    opt_m = copy.deepcopy(opt)
+    oc = OptConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+    _, new, m = train_step(card, opt, host, cfg=cfg, opt_cfg=oc,
+                           microbatches=2)
+    with ShardingCtx(mesh11):
+        opt_m = place_state(placed, opt_m, mesh11, cfg)
+        batch = sh.distribute(host, sh.batch_shardings(mesh11, cfg, "train"))
+        _, new_m, mm = train_step(
+            placed, opt_m, batch, cfg=cfg, opt_cfg=oc, microbatches=2,
+            grad_shardings=sh.opt_shardings(mesh11, cfg)["m"])
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(torch.as_tensor(mm[key]).cpu(),
+                                   torch.as_tensor(m[key]).cpu(), rtol=1e-6,
+                                   atol=1e-6, msg=key)
+    for name, p in card.named_parameters():
+        torch.testing.assert_close(
+            dict(placed.named_parameters())[name].full_tensor(), p,
+            rtol=0, atol=1e-6, msg=name)
+        torch.testing.assert_close(new_m["m"][name].full_tensor(),
+                                   new["m"][name], rtol=0, atol=1e-6,
+                                   msg=name)
+    assert int(new_m["step"].full_tensor()) == 4
+
+
+def test_mesh_serve_step_on_card_matches_unsharded(dev, mesh11):
+    """The fused prefill and six greedy ``serve_step`` calls on the 1x1
+    NCCL mesh (DTensor parameters, tokens and cache) against the
+    unsharded calls on the card: identical tokens, logits and caches at
+    1e-6 (float32, one rank)."""
+    import copy
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models.common import ShardingCtx
+    from repro_torch.serve.prefill import prefill_with_cache
+    from repro_torch.train import serve_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ("tinyllama-1.1b", "mamba2-1.3b"):
+        cfg, _, card = lm_pair(arch, "float32", dev)
+        placed = copy.deepcopy(card)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (4, 20)).astype(np.int32)).to(dev)
+        with ShardingCtx(mesh11):
+            sh.shard_params(placed, sh.param_shardings(mesh11, cfg))
+            dtoks = sh.distribute({"inputs": toks}, sh.batch_shardings(
+                mesh11, cfg, "prefill"))["inputs"]
+        for name, model, t in (("one", card, toks), ("mesh", placed, dtoks)):
+            with ShardingCtx(mesh11):
+                logits, cache = prefill_with_cache(model, cfg, t, 32)
+                tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                got = [tok]
+                for i in range(20, 26):
+                    tok, cache = serve_step(model, tok, cache, i, cfg=cfg)
+                    got.append(tok)
+            out[name] = (sh.gather(logits),
+                         torch.cat([sh.gather(x) for x in got], 1),
+                         {k: sh.gather(v) for k, v in cache.items()})
+        torch.testing.assert_close(out["mesh"][0], out["one"][0], rtol=0,
+                                   atol=1e-6)
+        assert torch.equal(out["mesh"][1], out["one"][1]), arch
+        for k, v in out["one"][2].items():
+            torch.testing.assert_close(out["mesh"][2][k], v, rtol=0,
+                                       atol=1e-6, msg=k)

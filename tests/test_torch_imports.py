@@ -35,6 +35,18 @@ def test_training_modules_found():
             "repro_torch.dist.checkpoint"} <= set(MODULES)
 
 
+def test_mesh_modules_found():
+    assert {"repro_torch.launch.mesh", "repro_torch.launch.shapes",
+            "repro_torch.dist.sharding", "repro_torch.models.common"} <= \
+        set(MODULES)
+    from repro_torch.models import attention, moe, ssm, transformer
+
+    for fn in (attention.attention_axes, moe.moe_axes, ssm.mamba2_axes,
+               transformer.layer_axes, transformer.params_axes,
+               transformer.cache_axes):
+        assert callable(fn)
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_star_import_and_all_names(name):
     mod = importlib.import_module(name)

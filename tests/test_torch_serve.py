@@ -259,7 +259,13 @@ def test_main_no_smoke_traces_every_config(arch):
 
 
 def test_main_has_no_mesh_option():
-    with pytest.raises(SystemExit):
+    """``--mesh`` takes "data,model" only, and a mesh the process group
+    cannot fill raises: a spec of another form exits with the reference's
+    message, and "2,1" in a world of one rank raises before any group
+    starts (tests/test_torch_mesh.py serves on real meshes)."""
+    with pytest.raises(SystemExit, match="--mesh expects 'data,model'"):
+        serve.main(["--device", "cpu", "--mesh", "2x1"])
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         serve.main(["--device", "cpu", "--mesh", "2,1"])
 
 
