@@ -10,11 +10,12 @@ reference package, and:
 1. builds the eleven CUDA libraries from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, prints the card's name and power limit, and prints ptxas's
    registers, stack frame, spills and shared memory for every
-   instantiation of ``planfuse_kernel``, ``moe_route_kernel``, the
-   histogram kernels, ``containerops_kernel``, ``member_kernel`` and
-   the three ``ewah_and_popcount`` kernels (``ewah_and_popcount_kernel``,
-   ``ewah_pair_chain_kernel``, ``ewah_pair_tiles_kernel``), failing if any
-   has a stack frame or a spill;
+   instantiation of every kernel of the eleven (``PTXAS_CHECKED``),
+   failing if any has a stack frame or a spill beyond ``PTXAS_ALLOWED``,
+   which names one kernel (``ewah_decode_kernel_markers``) with its bytes
+   as ceilings; then runs the port's static lint, ``python -m
+   repro_torch.analysis --baseline analysis_torch_baseline.json``, in a
+   subprocess, which must exit 0 (``[analysis]``);
 2. builds the dbgen-like (1,000,000 rows, seed 1) and census-like (199,523
    rows, seed 0) indexes with ``IndexSpec(row_order="lex",
    encoding="auto")`` and compiles a 64-predicate mix for each;
@@ -169,9 +170,17 @@ reference package, and:
    one card and on the mesh, whose greedy tokens must be identical and
    whose packing (rank 0) must launch ``ewah_decode`` and ``planfuse``;
    each run must print a mesh on the ``nccl`` backend;
-15. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
+15. dry-run phase (``[dryrun]``): the port's dry run
+   (``launch/dryrun.py``'s ``main``) over ``DRYRUN_CELLS`` in one
+   subprocess, on a fake 256- or 512-rank world and a fake ``cuda`` mesh
+   with ``meta`` DTensors: tinyllama-1.1b train_4k on 16x16 with
+   ``--grad-zero``, olmoe-1b-7b decode_32k on 2x16x16, zamba2-1.2b
+   long_500k on 16x16 (B = 1) and qwen2-vl-7b train_4k on 16x16, each
+   cell's status, seconds, per-rank FLOPs and collective counts and bytes
+   by kind printed; fails unless every cell is ``ok``;
+16. profiles one fused dbgen batch with ``torch.profiler`` (fails if it
    records no device time);
-16. prints the card line, the ``{"kernels": [...]}`` line and, last,
+17. prints the card line, the ``{"kernels": [...]}`` line and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any mismatch or error exits non-zero before the last line.  The full
@@ -181,7 +190,8 @@ measurements also go to ``chiprun_out/chip_smoke.json``.
 
 holds and times only ``member`` (both shapes), ``moe_route``,
 ``histogram``, ``ewah_and_popcount`` (both shapes of phase 9) and
-``ewah_decode`` (the worst-case batch) at their timed shapes through
+``ewah_decode`` (the dbgen mix's largest and median batches and the
+worst-case batch) at their timed shapes through
 ``ops`` and prints the card line and their numbers as one JSON line;
 copied into another checkout (the parent commit's), it times that
 checkout's kernels, so that two versions compare on one card.
@@ -190,6 +200,7 @@ checkout's kernels, so that two versions compare on one card.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -312,6 +323,16 @@ LM_TRAIN_TOL = {"loss": 1e-4, "params": 1e-5, "m": 1e-6}
 LM_MESH = "1,1"
 LM_MESH_STEPS = 8
 LM_MESH_TOL = 1e-3
+# [dryrun]: full-width cells of the port's dry run on a fake 256- or
+# 512-rank world, (arch, shape, flags); the 32k prefill cells take about
+# four minutes each of host time and are left to a full --all sweep
+DRYRUN_CELLS = (
+    ("tinyllama-1.1b", "train_4k", ["--grad-zero"]),  # dense, ZeRO-1 grads
+    ("olmoe-1b-7b", "decode_32k", ["--multi-pod"]),   # MoE decode, pod axis
+    ("zamba2-1.2b", "long_500k", []),     # hybrid, B = 1: replicated batch
+    ("qwen2-vl-7b", "train_4k", []),      # M-RoPE and the patch frontend
+)
+DRYRUN_TIMEOUT = 600
 
 
 
@@ -472,17 +493,41 @@ PTXAS_CHECKED = {
     # the short route's kernel and the wide route's two
     "ewah_and_popcount": (r"(ewah_and_popcount_kernel|ewah_pair_chain_kernel"
                           r"|ewah_pair_tiles_kernel)", 3),
+    # the decode's two phases
+    "ewah_decode": (r"ewah_decode_kernel_(markers|expand)", 2),
+    "bitpack": (r"bitpack_kernelILi(\d+)E", 2),  # 16 or 1 columns a thread
+    # the elementwise kernels: 16-byte (V = 4) and 4-byte (V = 1) accesses
+    "gray": (r"gray_kernelILi(\d)E", 2),
+    "recompress": (r"recompress_kernelILi(\d)E", 2),
+    "slicefold": (r"slicefold_kernelILi(\d)E", 2),
+    "wordops": (r"wordops_kernelILi(\d)E", 2),
 }
 
 
+# The one kernel allowed a stack frame and spills, with the byte counts
+# ptxas reports for it as ceilings (any growth fails):
+# ewah_decode_kernel_markers at __launch_bounds__(512, 2), which caps it at
+# 64 registers.  At (512, 1) it took 106 registers and no spill, but held
+# one block an SM, half the resident clusters, and decoded the median
+# dbgen batch 1.18x and the worst-case batch 1.26x slower on the card
+# (PERF.md, Findings).
+PTXAS_ALLOWED = {"ewah_decode markers": {"stack_frame": 40,
+                                         "spill_stores": 44,
+                                         "spill_loads": 64}}
+
+
 def kernel_resources(build, planfuse):
-    """ptxas's report for every instantiation of the checked kernels:
-    planfuse_kernel (depth class D, V words a thread; its shared memory is
-    all static: code, push list and ring), moe_route_kernel (NC mask words,
-    16-byte reads), the histogram kernels (regime, template arguments) and
-    the container kernels (containerops_kernel's words a thread, and
-    member_kernel) and the three ewah_and_popcount kernels; fails unless
-    every stack frame and spill is 0 bytes."""
+    """ptxas's report for every kernel of the eleven libraries, each
+    instantiation: planfuse_kernel (depth class D, V words a thread; its
+    shared memory is all static: code, push list and ring),
+    moe_route_kernel (NC mask words, 16-byte reads), the histogram kernels
+    (regime, template arguments), the container kernels
+    (containerops_kernel's words a thread, and member_kernel), the three
+    ewah_and_popcount kernels, the decode's two, bitpack_kernel (16 or 1
+    columns a thread) and the elementwise gray, recompress, slicefold and
+    wordops kernels (16- and 4-byte accesses); fails unless every stack
+    frame and spill is 0 bytes, or within ``PTXAS_ALLOWED`` for the kernel
+    it names."""
     import re
 
     out = {}
@@ -503,9 +548,11 @@ def kernel_resources(build, planfuse):
               f"instantiations, expected {count}")
         out.update(found)
     for key, e in out.items():
-        check(e.get("stack_frame") == 0 and e.get("spill_stores") == 0
-              and e.get("spill_loads") == 0,
-              f"{key} has a stack frame or spills: {e}")
+        ceiling = PTXAS_ALLOWED.get(key, {})
+        check(all(e.get(k) is not None and e[k] <= ceiling.get(k, 0)
+                  for k in ("stack_frame", "spill_stores", "spill_loads")),
+              f"{key} has a stack frame or spills beyond {ceiling or 0}: "
+              f"{e}")
     return out
 
 
@@ -1822,7 +1869,8 @@ def time_histograms(torch, hist_in, reps, flush):
 def timings_only(reps=20):
     """``python3 chip_smoke.py --timings``: only ``member``, ``moe_route``,
     ``histogram``, ``ewah_and_popcount`` (79 pairs and the SF 1 cross-tab)
-    and ``ewah_decode`` (the worst-case batch) at their timed shapes,
+    and ``ewah_decode`` (the largest, median and worst-case batches) at
+    their timed shapes,
     through ``ops`` (so that the same script times another checkout's
     kernels, e.g. the parent commit's, on the same card)."""
     import torch
@@ -1845,7 +1893,10 @@ def timings_only(reps=20):
     hist_in = histogram_inputs(
         torch, tables.make_dbgen_like(n_db, seed=seed_db),
         tables.make_census_like(n_ce, seed=seed_ce), "cuda")
-    idx = build_table(T, tables, "dbgen", n_db, seed_db)[1]
+    _, idx, cards = build_table(T, tables, "dbgen", n_db, seed_db)
+    plans = [T.query.compile_plan(idx, p)
+             for p in make_predicates(T, cards, seed_db)]
+    decode = decode_timings(torch, T, plans, reps, flush)
     and_popcount = {}
     for label, (pairs, want) in (("79 pairs", dbgen_pairs(idx)),
                                  ("SF 1 cross-tab", sf1_pairs())):
@@ -1863,7 +1914,34 @@ def timings_only(reps=20):
             "moe_route": time_moe_route(torch, "cuda", reps, profiled=False),
             "histogram": time_histograms(torch, hist_in, reps, flush),
             "ewah_and_popcount": and_popcount,
-            "ewah_decode_worst": worst_case_decode(torch, "cuda", reps)["ms"]}
+            "ewah_decode": decode}
+
+
+def decode_timings(torch, T, plans, reps, flush):
+    """``ewah_decode`` at the three shapes ``[kernels]`` times: the dbgen
+    mix's largest and median batches and the worst-case batch, each held
+    bit for bit against its plain version; ms by shape."""
+    from repro_torch.core import ewah
+    from repro_torch.kernels import ops, ref
+
+    be = T.TorchBackend(device="cuda")
+    groups = sorted(be._group(plans).items(),
+                    key=lambda kv: len(kv[1]) * len(plans[kv[1][0]].streams)
+                    * kv[0][1])
+    _, cap, n_rows, idxs, _ = largest_group(be, plans)
+    (_, m_cap, m_rows), m_idxs = groups[len(groups) // 2]
+    out = {}
+    for label, cap, n_rows, idxs in (("largest", cap, n_rows, idxs),
+                                     ("median", m_cap, m_rows, m_idxs)):
+        batch, lengths = be._to_device(*be._pad_group(plans, idxs, cap))
+        W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+        kern = lambda: ops.ewah_decode(batch, lengths, W)  # noqa: E731
+        held(torch, f"ewah_decode ({label} batch)", kern,
+             lambda: ref.ewah_decode(batch, lengths, W))
+        out[label] = event_ms(torch, kern, reps, flush)
+        log(f"[timing] ewah_decode {label} batch: {out[label]:.6f} ms")
+    out["worst"] = worst_case_decode(torch, "cuda", reps)["ms"]
+    return out
 
 
 def build_primitives_phase(torch, data, device, reps):
@@ -3166,6 +3244,65 @@ def lm_mesh_phase(torch, device, train_out=None):
     return out
 
 
+def analysis_phase():
+    """``[analysis]``: the port's static lint, ``python -m
+    repro_torch.analysis --baseline analysis_torch_baseline.json``, in a
+    subprocess; fails unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--baseline",
+         "analysis_torch_baseline.json"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300)
+    log(f"[analysis] {proc.stdout.strip()} (exit {proc.returncode})")
+    check(proc.returncode == 0, f"repro_torch.analysis exited "
+          f"{proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return {"exit": proc.returncode, "stdout": proc.stdout}
+
+
+def dryrun_phase():
+    """``[dryrun]``: the port's dry run (``launch/dryrun.py``'s ``main``,
+    once a cell of ``DRYRUN_CELLS``) in one subprocess, since a process
+    holds one default group and ``[lm_mesh]`` started an NCCL one here:
+    a fake 256- or 512-rank world, a fake mesh on ``cuda`` where a card
+    is present (else ``cpu``), ``meta`` DTensors.  Prints each cell's
+    status, seconds, per-rank FLOPs and collective counts and bytes by
+    kind; fails on a non-zero exit or any cell not ``ok``."""
+    out_dir = ROOT / "build" / "dryrun"
+    argvs = [["--arch", arch, "--shape", shape, *flags, "--out",
+              str(out_dir / f"{arch}__{shape}")]
+             for arch, shape, flags in DRYRUN_CELLS]
+    script = ("import json, sys\n"
+              "from repro_torch.launch.dryrun import main\n"
+              "sys.exit(max([main(a) for a in json.loads(sys.argv[1])]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script, json.dumps(argvs)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"the dry run exited {proc.returncode}: "
+          f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    cells = []
+    for argv in argvs:
+        summary = json.loads((Path(argv[-1]) / "summary.json").read_text())
+        check(len(summary) == 1, f"{argv}: {len(summary)} records, not 1")
+        rec = summary[0]
+        cells.append(rec)
+        check(rec["status"] == "ok", f"[dryrun] {rec['mesh']} {rec['arch']} "
+              f"{rec['shape']}: {rec['status']} {rec.get('error')}")
+        coll = rec["collectives"]
+        log(f"[dryrun] {rec['mesh']} {rec['arch']} {rec['shape']} on a fake "
+            f"{rec['mesh_device']} mesh of {rec['n_devices']} ranks: "
+            f"{rec['status']}, placing {rec['lower_s']:.2f} s, step "
+            f"{rec['compile_s']:.2f} s, per-rank FLOPs "
+            f"{rec['cost']['flops']:.4e}, argument bytes a rank "
+            f"{rec['memory']['argument_bytes']}, collectives "
+            f"{coll['counts']}, bytes {coll['bytes']}, total "
+            f"{coll['total_bytes']:.4e} B")
+    log(f"[dryrun] {len(cells)} cells in {secs:.1f} s (one process)")
+    return {"seconds": secs, "cells": cells}
+
+
 def run(device="cuda", scale=1.0, reps=20):
     """All phases; ``scale`` shrinks the tables for a rehearsal on the CPU
     with the kernels' plain versions (``device="cpu"``)."""
@@ -3190,6 +3327,7 @@ def run(device="cuda", scale=1.0, reps=20):
         from repro_torch.kernels import planfuse
 
         report["kernel_resources"] = kernel_resources(build, planfuse)
+    report["analysis"] = analysis_phase()
 
     data = {}
     for name, n_rows, seed in TABLES:
@@ -3258,6 +3396,7 @@ def run(device="cuda", scale=1.0, reps=20):
     report["lm_mesh"] = lm = lm_mesh_phase(torch, device, lm)
     for k, v in lm["launches"].items():
         totals[k] += v
+    report["dryrun"] = dryrun_phase()
     report["launches"] = totals
     if device != "cpu":
         prof = profile_kernels(torch, T, data["dbgen"][3], device)

@@ -16,7 +16,8 @@ import torch
 from ..configs import get_config
 from ..models import transformer
 
-__all__ = ["SHAPES", "ShapeSpec", "cell_config", "input_specs", "runnable"]
+__all__ = ["SHAPES", "ShapeSpec", "cell_config", "input_specs", "runnable",
+           "specs_for"]
 
 
 @dataclass(frozen=True)
@@ -60,9 +61,14 @@ def input_specs(arch: str, shape_name: str):
 
     Returns (cfg, kind, specs_dict).  Nothing is allocated.
     """
-    cfg = get_config(arch)
     shape = SHAPES[shape_name]
-    cfg = cell_config(cfg, shape)
+    cfg = cell_config(get_config(arch), shape)
+    return cfg, shape.kind, specs_for(cfg, shape)
+
+
+def specs_for(cfg, shape: ShapeSpec) -> dict:
+    """The specs dict of :func:`input_specs` for any config and shape
+    (e.g. a smoke config at a small ``ShapeSpec``)."""
     B, S = shape.global_batch, shape.seq_len
     n_patches = min(1024, S)  # frontend-stub block per sample
 
@@ -77,10 +83,10 @@ def input_specs(arch: str, shape_name: str):
             batch["mrope_positions"] = _spec((3, B, S), torch.int32)
         if shape.kind == "prefill":
             batch.pop("labels")
-        return cfg, shape.kind, {"batch": batch}
+        return {"batch": batch}
 
     # decode: one new token against a seq_len KV cache
-    return cfg, "decode", {
+    return {
         "tokens": _spec((B, 1), torch.int32),
         "cache": transformer.init_decode_cache(cfg, B, S, device="meta"),
         "cache_len": _spec((), torch.int32),

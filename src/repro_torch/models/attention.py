@@ -23,7 +23,8 @@ import torch
 from torch import nn
 
 from .common import (apply_mrope, apply_rope, dense_init, from_local,
-                     is_dtensor, lshard, placed_as, shard_span)
+                     is_dtensor, lshard, placed_as, shard_count, shard_span,
+                     unsharded)
 
 __all__ = ["NEG_INF", "Attention", "attention", "attention_axes",
            "decode_attention", "write_kv"]
@@ -81,9 +82,9 @@ def _project_qkv(p, cfg, x, positions, mrope_positions=None):
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, cfg.n_heads, hd)
-    k = k.reshape(b, s, cfg.n_kv_heads, hd)
-    v = v.reshape(b, s, cfg.n_kv_heads, hd)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
     if mrope_positions is not None:
         q = apply_mrope(q, mrope_positions, cfg.mrope_sections,
                         cfg.rope_theta)
@@ -96,6 +97,15 @@ def _project_qkv(p, cfg, x, positions, mrope_positions=None):
     k = lshard(k, "batch", "seq", "kv_heads", "head_dim")
     v = lshard(v, "batch", "seq", "kv_heads", "head_dim")
     return q, k, v
+
+
+def _split_heads(x, n, hd):
+    """(b, s, n * hd) -> (b, s, n, hd).  On a mesh, a last dimension split
+    over a number of ranks that does not divide ``n`` is replicated first:
+    DTensor has no rule for an unflatten into uneven head shards."""
+    if is_dtensor(x) and n % shard_count(x, -1):
+        x = unsharded(x, -1)
+    return x.reshape(*x.shape[:-1], n, hd)
 
 
 def _scores(q, k):
@@ -195,7 +205,12 @@ def attention(p, cfg, x, positions, mrope_positions=None, impl="blockwise",
     else:
         o = core(q, k, v, cfg.n_kv_heads, window)
     o = lshard(o, "batch", "seq", "heads", "head_dim")
-    out = o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p.wo
+    # heads left whole where the model axis does not divide them: the
+    # merged dimension is split again (a local slice), so that the
+    # gradient reaching the unflatten in the backward comes back whole
+    o = lshard(o.reshape(b, s, cfg.n_heads * cfg.head_dim),
+               "batch", "seq", "heads")
+    out = o @ p.wo
     out = lshard(out, "batch", "seq", "embed")
     if return_kv:
         return out, k, v

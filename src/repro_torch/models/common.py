@@ -44,8 +44,8 @@ __all__ = ["AbstractMesh", "DEFAULT_RULES", "ShardingCtx", "apply_mrope",
            "embed_init", "from_local", "is_dtensor", "logical_to_spec",
            "lshard", "mesh_axes", "mesh_region", "on_local_rows", "placed_as",
            "replicated", "resolve_device", "rms_norm", "rope_freqs",
-           "set_layer", "shard_span", "silu", "softplus", "spec_for",
-           "spec_to_placements", "swiglu", "unsharded"]
+           "set_layer", "shard_count", "shard_span", "silu", "softplus",
+           "spec_for", "spec_to_placements", "swiglu", "unsharded"]
 
 
 # ---------------------------------------------------------------------------
@@ -169,10 +169,35 @@ def lshard(x, *axes):
     ctx = current_ctx()
     if ctx is None or x.dim() != len(axes) or not is_dtensor(x):
         return x
-    target = spec_to_placements(logical_to_spec(axes), x.device_mesh)
+    target = _dividing(spec_to_placements(logical_to_spec(axes),
+                                          x.device_mesh), x)
     if list(x.placements) == target:
         return x
     return x.redistribute(x.device_mesh, target)
+
+
+def shard_count(x, dim: int) -> int:
+    """Ranks that split dimension ``dim`` of the DTensor ``x``."""
+    count = 1
+    for md, p in enumerate(x.placements):
+        if p.is_shard(dim % x.dim()):
+            count *= x.device_mesh.size(md)
+    return count
+
+
+def _dividing(placements, x) -> list:
+    """``placements`` for ``x`` with a dimension that its mesh axes do
+    not divide left replicated: DTensor's uneven shards have no view rule
+    and the local-shard paths need even ones (GSPMD pads the dimension
+    instead, e.g. 28 heads over 16 ranks)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh, counts = x.device_mesh, {}
+    for md, p in enumerate(placements):
+        if p.is_shard():
+            counts[p.dim] = counts.get(p.dim, 1) * mesh.size(md)
+    return [Replicate() if p.is_shard() and x.shape[p.dim] % counts[p.dim]
+            else p for p in placements]
 
 
 def replicated(x):
@@ -378,7 +403,11 @@ def softplus(x):
 def swiglu(x, w_gate, w_up, w_down):
     h = silu(x @ w_gate) * (x @ w_up)
     h = lshard(h, "batch", "seq", "ff")
-    return h @ w_down
+    # on a mesh the down projection's partial sums over the model axis
+    # are reduced here, where GSPMD reduces them in the reference; a
+    # partial residual stream would make DTensor gather the next layer's
+    # weights instead and repeat their products on every model rank
+    return lshard(h @ w_down, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------

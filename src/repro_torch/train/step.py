@@ -212,6 +212,11 @@ def serve_step(params, tokens, cache, cache_len, *, cfg, temperature=0.0,
     """
     logits, cache = transformer.decode_step(params, cfg, tokens, cache,
                                             cache_len)
+    # on a mesh, the arg-max over a vocab dimension sharded on the model
+    # axis fails in DTensor's all-gather of the (value, index) pairs when
+    # the batch is replicated (B = 1): the vocab dimension is replicated
+    # first, the batch shard kept
+    logits = unsharded(logits, -1)
     if temperature > 0.0 and generator is not None:
         probs = torch.softmax(logits.float() / temperature, dim=-1)
         next_tok = torch.multinomial(probs, 1, generator=generator)[:, 0]

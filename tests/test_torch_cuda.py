@@ -1273,3 +1273,47 @@ def test_mesh_serve_step_on_card_matches_unsharded(dev, mesh11):
         for k, v in out["one"][2].items():
             torch.testing.assert_close(out["mesh"][2][k], v, rtol=0,
                                        atol=1e-6, msg=k)
+
+
+DRYRUN_SCRIPT = r"""
+import json
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.shapes import ShapeSpec, specs_for
+
+dryrun.fake_world(4)
+mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+cfg = get_config("tinyllama-1.1b").smoke()
+smoke = dryrun.measure_step(cfg, "train", specs_for(
+    cfg, ShapeSpec("smoke", "train", 32, 8)), mesh)
+smoke.pop("ops")
+cell = dryrun.run_cell("zamba2-1.2b", "long_500k", False)
+print("DRYRUN:" + json.dumps({"smoke": smoke, "cell": cell}))
+"""
+
+
+def test_dryrun_cells_on_a_cuda_fake_mesh(dev):
+    """The dry run on a ``"cuda"`` fake mesh, in a subprocess (a process
+    holds one default group): tinyllama-1.1b's smoke train step of 8 x 32
+    tokens on a fake (2, 2) world counts collectives and per-rank FLOPs,
+    and the full-width zamba2-1.2b long_500k cell (B = 1) on a fake 16x16
+    world records ``ok`` on a cuda mesh."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    out = subprocess.run([sys.executable, "-c", DRYRUN_SCRIPT],
+                         env=dict(os.environ, PYTHONPATH=src),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    line = [x for x in out.stdout.splitlines() if x.startswith("DRYRUN:")]
+    res = json.loads(line[-1][len("DRYRUN:"):])
+    assert res["smoke"]["collectives"]["total_bytes"] > 0
+    assert res["smoke"]["cost"]["flops"] > 0
+    cell = res["cell"]
+    assert cell["status"] == "ok", cell.get("error")
+    assert cell["mesh_device"] == "cuda" and cell["n_devices"] == 256

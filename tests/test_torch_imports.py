@@ -47,6 +47,20 @@ def test_mesh_modules_found():
         assert callable(fn)
 
 
+def test_last_modules_found():
+    assert {"repro_torch.analysis.findings", "repro_torch.analysis.locksafety",
+            "repro_torch.analysis.apicheck",
+            "repro_torch.analysis.backendcheck",
+            "repro_torch.analysis.containercheck",
+            "repro_torch.analysis.kernelcheck",
+            "repro_torch.analysis.__main__",
+            "repro_torch.launch.dryrun"} <= set(MODULES)
+    from repro_torch.analysis import RULES, run_analysis
+    from repro_torch.launch.dryrun import run_cell
+
+    assert callable(run_analysis) and callable(run_cell) and RULES
+
+
 @pytest.mark.parametrize("name", MODULES)
 def test_star_import_and_all_names(name):
     mod = importlib.import_module(name)
