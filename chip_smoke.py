@@ -712,47 +712,30 @@ def path_phase(torch, T, name, cols, idx, preds, device):
 
 
 def time_split(torch, T, plans, device):
-    """One fused compressed batch of the mix, step by step with a
-    synchronize after each: host grouping and padding, host-to-device
-    copy, the device program, device-to-host copy and host slicing."""
-    import numpy as np
-
-    from repro_torch.core import ewah
+    """One fused compressed batch of the mix on a fresh backend, split by
+    the backend's own spans (``repro_torch.tracing``): grouping and
+    padding, the host-to-device copy, the device program with its copy
+    back, and the host re-encode when the rows need one."""
+    from repro_torch import tracing
 
     be = T.TorchBackend(device=device)
-    split = {"pad_s": 0.0, "h2d_s": 0.0, "device_s": 0.0, "d2h_s": 0.0,
-             "result_words": 0}
-    h2d = []
-    t0 = time.perf_counter()
-    groups = be._group(plans)
-    split["group_s"] = time.perf_counter() - t0
-    for (root, cap, n_rows), idxs in groups.items():
-        check(n_rows <= ewah.MAX_DIRTY * ewah.WORD_BITS,
-              "the split times the on-device re-encode")
-        t0 = time.perf_counter()
-        batch, lengths = be._pad_group(plans, idxs, cap)
-        t1 = time.perf_counter()
-        dev = be._to_device(batch, lengths)
-        sync(torch, device)
-        t2 = time.perf_counter()
-        streams, lens = be._run(root, *dev, (n_rows + 31) // 32,
-                                compressed=True)
-        sync(torch, device)
-        t3 = time.perf_counter()
-        streams = streams.cpu().numpy().view(np.uint32)
-        lens = lens.cpu().numpy()
-        results = [streams[b, : lens[b]] for b in range(len(idxs))]
-        t4 = time.perf_counter()
-        split["result_words"] += sum(len(r) for r in results)
-        split["pad_s"] += t1 - t0
-        split["h2d_s"] += t2 - t1
-        split["device_s"] += t3 - t2
-        split["d2h_s"] += t4 - t3
-        h2d.append(batch.nbytes + lengths.nbytes)
-    split["batches"] = len(groups)
-    split["h2d_bytes_per_batch_mean"] = float(np.mean(h2d))
-    split["h2d_bytes_per_batch_max"] = int(max(h2d))
-    split["h2d_bytes_total"] = int(sum(h2d))
+    prev = tracing.enable()
+    tracing.reset()
+    try:
+        be.execute_compressed_many(plans)
+        snap = tracing.snapshot()
+    finally:
+        tracing.enable(prev)
+        tracing.reset()
+    spans, counters = snap["spans"], snap["counters"]
+    split = {f"{k[len('backend.'):]}_s": v["s"] for k, v in spans.items()
+             if k.startswith("backend.")}
+    split["call_self_s"] = spans["backend.call"]["self_s"]
+    split["batches"] = counters["backend.groups"]
+    split["h2d_bytes_total"] = counters["backend.h2d_bytes"]
+    split["stream_bytes_total"] = counters["backend.stream_bytes"]
+    split["h2d_bytes_per_batch_mean"] = (counters["backend.h2d_bytes"]
+                                         / max(1, split["batches"]))
     log("[split] " + ", ".join(f"{k} {v:.6g}" for k, v in split.items()))
     return split
 

@@ -54,6 +54,7 @@ from functools import lru_cache
 import numpy as np
 
 from . import ewah, ewah_stream
+from .. import tracing
 from .ewah_stream import EwahStream
 from ..analysis.runtime import make_lock, maybe_validate
 
@@ -480,79 +481,79 @@ def compile_plan(index, pred: Predicate, names=None) -> Plan:
     :class:`~repro.core.encodings.ColumnEncoding` (equality k-of-N fan-ins,
     bit-sliced comparison folds, or binned coarse-plus-refinement).
     """
-    col_perm = np.asarray(index.col_perm)
-    inv = np.empty(len(col_perm), dtype=np.int64)
-    inv[col_perm] = np.arange(len(col_perm))
-    ctx = PlanContext(index.n_rows)
+    with tracing.span("query.plan"):
+        col_perm = np.asarray(index.col_perm)
+        inv = np.empty(len(col_perm), dtype=np.int64)
+        inv[col_perm] = np.arange(len(col_perm))
+        ctx = PlanContext(index.n_rows)
 
-    events: list = []
+        events: list = []
 
-    def resolve(col):
-        if isinstance(col, str):
-            if names is None:
-                raise ValueError(
-                    f"predicate references column {col!r} by name but the "
-                    "index has no column names (pass names=...)")
-            try:
-                col = list(names).index(col)
-            except ValueError:
-                raise ValueError(
-                    f"unknown column {col!r}; known: {', '.join(names)}"
-                ) from None
-        col = int(col)
-        if not 0 <= col < len(col_perm):
-            raise ValueError(f"column {col} out of range (0..{len(col_perm) - 1})")
-        ci = index.columns[int(inv[col])]
-        if ci.streams is None:
-            raise ValueError("index built with materialize=False cannot be queried")
-        return col, ci.encoding
+        def resolve(col):
+            if isinstance(col, str):
+                if names is None:
+                    raise ValueError(
+                        f"predicate references column {col!r} by name but the "
+                        "index has no column names (pass names=...)")
+                try:
+                    col = list(names).index(col)
+                except ValueError:
+                    raise ValueError(
+                        f"unknown column {col!r}; known: {', '.join(names)}"
+                    ) from None
+            col = int(col)
+            if not 0 <= col < len(col_perm):
+                raise ValueError(f"column {col} out of range (0..{len(col_perm) - 1})")
+            ci = index.columns[int(inv[col])]
+            if ci.streams is None:
+                raise ValueError("index built with materialize=False cannot be queried")
+            return col, ci.encoding
 
-    def record(col, shape, width, enc, node):
-        events.append((col, shape, width, enc.kind, count_merges(node)))
-        return node
+        def record(col, shape, width, enc, node):
+            events.append((col, shape, width, enc.kind, count_merges(node)))
+            return node
 
-    def build(p) -> tuple:
-        if isinstance(p, Eq):
-            col, enc = resolve(p.col)
-            if not 0 <= p.value < enc.card:
-                return ctx.zero()  # out-of-domain: no rows
-            return record(col, "eq", 1, enc, enc.compile_eq(ctx, p.value))
-        if isinstance(p, In):
-            col, enc = resolve(p.col)
-            values = sorted({v for v in p.values if 0 <= v < enc.card})
-            if not values:
-                return ctx.zero()
-            if len(values) == enc.card:
-                return ctx.ones()  # every row holds some in-domain value
-            return record(col, "in", len(values), enc,
-                          enc.compile_in(ctx, values))
-        if isinstance(p, Range):
-            # clamp to the column domain before any value materializes —
-            # Range(col, 0, 10**9) must not iterate a billion values
-            col, enc = resolve(p.col)
-            lo, hi = max(p.lo, 0), min(p.hi, enc.card - 1)
-            if lo > hi:
-                return ctx.zero()
-            if lo == 0 and hi == enc.card - 1:
-                return ctx.ones()
-            return record(col, "range", hi - lo + 1, enc,
-                          enc.compile_range(ctx, lo, hi))
-        if isinstance(p, And):
-            return _fanin("and", [build(c) for c in p.children])
-        if isinstance(p, Or):
-            return _fanin("or", [build(c) for c in p.children])
-        if isinstance(p, Not):
-            return ("not", build(p.child))
-        raise TypeError(f"not a Predicate: {p!r}")
+        def build(p) -> tuple:
+            if isinstance(p, Eq):
+                col, enc = resolve(p.col)
+                if not 0 <= p.value < enc.card:
+                    return ctx.zero()  # out-of-domain: no rows
+                return record(col, "eq", 1, enc, enc.compile_eq(ctx, p.value))
+            if isinstance(p, In):
+                col, enc = resolve(p.col)
+                values = sorted({v for v in p.values if 0 <= v < enc.card})
+                if not values:
+                    return ctx.zero()
+                if len(values) == enc.card:
+                    return ctx.ones()  # every row holds some in-domain value
+                return record(col, "in", len(values), enc,
+                              enc.compile_in(ctx, values))
+            if isinstance(p, Range):
+                # clamp to the column domain before any value materializes —
+                # Range(col, 0, 10**9) must not iterate a billion values
+                col, enc = resolve(p.col)
+                lo, hi = max(p.lo, 0), min(p.hi, enc.card - 1)
+                if lo > hi:
+                    return ctx.zero()
+                if lo == 0 and hi == enc.card - 1:
+                    return ctx.ones()
+                return record(col, "range", hi - lo + 1, enc,
+                              enc.compile_range(ctx, lo, hi))
+            if isinstance(p, And):
+                return _fanin("and", [build(c) for c in p.children])
+            if isinstance(p, Or):
+                return _fanin("or", [build(c) for c in p.children])
+            if isinstance(p, Not):
+                return ("not", build(p.child))
+            raise TypeError(f"not a Predicate: {p!r}")
 
-    plan = Plan(streams=ctx.streams, root=build(pred), n_rows=index.n_rows,
-                scope=getattr(index, "cache_scope", None),
-                containers=ctx.containers or None, workload=tuple(events))
-    plan.root = _cost_order(plan.root, plan.streams, plan.n_words)
-    _renumber_leaves(plan)
-    PLAN_STATS.record(plan)
-    _WORKLOAD.record(plan.workload)
-    return plan
+        plan = Plan(streams=ctx.streams, root=build(pred), n_rows=index.n_rows,
+                    scope=getattr(index, "cache_scope", None),
+                    containers=ctx.containers or None, workload=tuple(events))
+        plan.root = _cost_order(plan.root, plan.streams, plan.n_words)
+        _renumber_leaves(plan)
+        PLAN_STATS.record(plan)
+        return plan
 
 
 def evaluate_mask(pred: Predicate, columns, names=None) -> np.ndarray:
@@ -759,65 +760,6 @@ def lower_containers_many(plans, fold_many, cache=None) -> list:
         plan.containers = None
         _renumber_leaves(plan)
     return plans
-
-
-class _WorkloadCounters:
-    """Aggregated per-(column, predicate shape, encoding) planner counters.
-
-    :func:`compile_plan` feeds one event per column predicate it delegates
-    to an encoding; the public surface is :func:`workload_snapshot` /
-    :func:`workload_reset` — the API benchmarks and
-    :mod:`repro.workload`'s cost model read instead of private planner
-    state.
-    """
-
-    def __init__(self):
-        self._mutex = make_lock("query_workload", reentrant=False)
-        self._counts: dict = {}  # guarded-by: _mutex
-
-    def record(self, events) -> None:
-        if not events:
-            return
-        with self._mutex:
-            for col, shape, width, enc_kind, merges in events:
-                cell = self._counts.setdefault(
-                    (col, shape, enc_kind),
-                    {"count": 0, "merges": 0, "width": 0})
-                cell["count"] += 1
-                cell["merges"] += merges
-                cell["width"] += width
-
-    def snapshot(self) -> dict:
-        with self._mutex:
-            return {k: dict(v) for k, v in self._counts.items()}
-
-    def reset(self) -> None:
-        with self._mutex:
-            self._counts.clear()
-
-
-_WORKLOAD = _WorkloadCounters()
-
-
-def workload_snapshot() -> dict:
-    """Per-column predicate-flow counters accumulated by every
-    :func:`compile_plan` call in this process.
-
-    Returns ``{(column, shape, encoding): {"count", "merges", "width"}}``
-    where ``column`` is the original table position, ``shape`` is the
-    predicate kind (``"eq"`` / ``"in"`` / ``"range"``), ``encoding`` the
-    :class:`~repro.core.encodings.ColumnEncoding` kind that compiled it,
-    ``count`` how many predicates hit that cell, and ``merges`` / ``width``
-    the summed :func:`count_merges` cost and value-domain width.  The
-    snapshot is a deep copy — callers may mutate it freely.  See
-    docs/query_api.md ("Workload telemetry").
-    """
-    return _WORKLOAD.snapshot()
-
-
-def workload_reset() -> None:
-    """Clear the process-wide workload counters (test/benchmark hygiene)."""
-    _WORKLOAD.reset()
 
 
 def _fanin(op: str, children: list) -> tuple:
@@ -1231,18 +1173,23 @@ class TorchBackend:
         return self.execute_many([plan])[0]
 
     def execute_many(self, plans):
-        plans = lower_containers_many(plans, self._container_fold_many,
-                                      self.result_cache)
-        out: list = [None] * len(plans)
-        for (root, cap, n_rows), idxs in self._group(plans).items():
-            batch, lengths = self._pad_group(plans, idxs, cap)
-            n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
-            words = self._run(root, *self._to_device(batch, lengths), n_words)
-            words = words.cpu().numpy().view(np.uint32)
-            for b, i in enumerate(idxs):
-                bits = ewah.unpack_bits(words[b], n_rows)
-                out[i] = (np.flatnonzero(bits), plans[i].leaf_words())
-        return out
+        with tracing.span("backend.call", device=True):
+            plans = lower_containers_many(plans, self._container_fold_many,
+                                          self.result_cache)
+            out: list = [None] * len(plans)
+            for (root, cap, n_rows), idxs in self._group(plans).items():
+                batch, lengths = self._pad_group(plans, idxs, cap)
+                n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+                dev_batch = self._to_device(batch, lengths)
+                with tracing.span("backend.device", device=True):
+                    words = self._run(root, *dev_batch, n_words)
+                    words = words.cpu().numpy().view(np.uint32)
+                for b, i in enumerate(idxs):
+                    with tracing.span("backend.unpack"):
+                        rows = np.flatnonzero(
+                            ewah.unpack_bits(words[b], n_rows))
+                    out[i] = (rows, plans[i].leaf_words())
+            return out
 
     def execute_compressed(self, plan: Plan) -> EwahStream:
         return self.execute_compressed_many([plan])[0]
@@ -1252,71 +1199,89 @@ class TorchBackend:
         group exactly like ``execute_many``, but the device program ends
         with the re-encode, so results come back as EWAH streams and
         whole-plan results land in ``result_cache``."""
-        plans = lower_containers_many(plans, self._container_fold_many,
-                                      self.result_cache)
-        out: list = [None] * len(plans)
-        keys: list = [None] * len(plans)
-        todo = []
-        for i, p in enumerate(plans):
-            digests = [_leaf_digest(s) for s in p.streams]
-            keys[i] = _node_key(p.root, digests, p.n_rows)
-            hit = self.result_cache.get(keys[i])
-            if hit is not None:
-                out[i] = maybe_validate(
-                    EwahStream(hit.data, hit.n_rows, 0),  # cache: no scan
-                    origin="TorchBackend.execute_compressed_many[cache]")
-            else:
-                todo.append(i)
-        for (root, cap, n_rows), idxs in self._group(plans, todo).items():
-            batch, lengths = self._pad_group(plans, idxs, cap)
-            n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
-            dev_batch = self._to_device(batch, lengths)
-            if n_words <= ewah.MAX_DIRTY:
-                streams, lens = self._run(root, *dev_batch, n_words,
-                                          compressed=True)
-                streams = streams.cpu().numpy().view(np.uint32)
-                lens = lens.cpu().numpy()
-                enc = [streams[b, : lens[b]] for b in range(len(idxs))]
-            else:
-                # beyond the single-marker-per-group limit of the vectorized
-                # emit (~1M rows) the re-encode happens host-side
-                words = self._run(root, *dev_batch, n_words)
-                words = words.cpu().numpy().view(np.uint32)
-                enc = [ewah.compress(words[b]) for b in range(len(idxs))]
-            for b, i in enumerate(idxs):
-                res = maybe_validate(
-                    EwahStream(enc[b], n_rows, plans[i].leaf_words()),
-                    origin="TorchBackend.execute_compressed_many")
-                self.result_cache.put(keys[i], res, plans[i].scope)
-                out[i] = res
-        return out
+        with tracing.span("backend.call", device=True):
+            plans = lower_containers_many(plans, self._container_fold_many,
+                                          self.result_cache)
+            out: list = [None] * len(plans)
+            keys: list = [None] * len(plans)
+            todo = []
+            with tracing.span("backend.key"):
+                for i, p in enumerate(plans):
+                    digests = [_leaf_digest(s) for s in p.streams]
+                    keys[i] = _node_key(p.root, digests, p.n_rows)
+                    hit = self.result_cache.get(keys[i])
+                    if hit is not None:
+                        out[i] = maybe_validate(
+                            EwahStream(hit.data, hit.n_rows, 0),  # no scan
+                            origin="TorchBackend.execute_compressed_many"
+                                   "[cache]")
+                    else:
+                        todo.append(i)
+            for (root, cap, n_rows), idxs in self._group(plans, todo).items():
+                batch, lengths = self._pad_group(plans, idxs, cap)
+                n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+                dev_batch = self._to_device(batch, lengths)
+                if n_words <= ewah.MAX_DIRTY:
+                    with tracing.span("backend.device", device=True):
+                        streams, lens = self._run(root, *dev_batch, n_words,
+                                                  compressed=True)
+                        streams = streams.cpu().numpy().view(np.uint32)
+                        lens = lens.cpu().numpy()
+                    enc = [streams[b, : lens[b]] for b in range(len(idxs))]
+                else:
+                    # beyond the single-marker-per-group limit of the
+                    # vectorized emit (~1M rows) the re-encode happens
+                    # host-side
+                    with tracing.span("backend.device", device=True):
+                        words = self._run(root, *dev_batch, n_words)
+                        words = words.cpu().numpy().view(np.uint32)
+                    enc = []
+                    for b in range(len(idxs)):
+                        with tracing.span("backend.reencode"):
+                            enc.append(ewah.compress(words[b]))
+                for b, i in enumerate(idxs):
+                    res = maybe_validate(
+                        EwahStream(enc[b], n_rows, plans[i].leaf_words()),
+                        origin="TorchBackend.execute_compressed_many")
+                    self.result_cache.put(keys[i], res, plans[i].scope)
+                    out[i] = res
+            return out
 
     def _group(self, plans, idxs=None) -> dict:
-        groups: dict = {}
-        for i in range(len(plans)) if idxs is None else idxs:
-            p = plans[i]
-            cap = PLAN_STATS.capacity_for(max(len(s) for s in p.streams))
-            # key on the full root (leaf indices included), not signature():
-            # only plans with an identical leaf-to-stream mapping may share
-            # a device program
-            groups.setdefault((p.root, cap, p.n_rows), []).append(i)
+        with tracing.span("backend.pad"):
+            groups: dict = {}
+            for i in range(len(plans)) if idxs is None else idxs:
+                p = plans[i]
+                cap = PLAN_STATS.capacity_for(max(len(s) for s in p.streams))
+                # key on the full root (leaf indices included), not
+                # signature(): only plans with an identical leaf-to-stream
+                # mapping may share a device program
+                groups.setdefault((p.root, cap, p.n_rows), []).append(i)
+        tracing.add("backend.groups", len(groups))
         return groups
 
     @staticmethod
     def _pad_group(plans, idxs, cap):
-        m = len(plans[idxs[0]].streams)
-        batch = np.zeros((len(idxs), m, cap), dtype=np.uint32)
-        lengths = np.zeros((len(idxs), m), dtype=np.int32)
-        for b, i in enumerate(idxs):
-            for j, s in enumerate(plans[i].streams):
-                batch[b, j, : len(s)] = s
-                lengths[b, j] = len(s)
+        with tracing.span("backend.pad"):
+            m = len(plans[idxs[0]].streams)
+            batch = np.zeros((len(idxs), m, cap), dtype=np.uint32)
+            lengths = np.zeros((len(idxs), m), dtype=np.int32)
+            for b, i in enumerate(idxs):
+                for j, s in enumerate(plans[i].streams):
+                    batch[b, j, : len(s)] = s
+                    lengths[b, j] = len(s)
         return batch, lengths
 
     def _to_device(self, batch, lengths):
         """Host (B, m, C) uint32 streams and (B, m) lengths -> int32
-        bit-view tensors on the backend's device."""
-        return self._tensor(batch), self._tensor(lengths)
+        bit-view tensors on the backend's device.  Counts the bytes copied
+        (``backend.h2d_bytes``) and the stream words among them
+        (``backend.stream_bytes``); the rest is padding."""
+        if tracing.enabled():
+            tracing.add("backend.h2d_bytes", batch.nbytes + lengths.nbytes)
+            tracing.add("backend.stream_bytes", 4 * int(lengths.sum()))
+        with tracing.span("backend.h2d", device=True):
+            return self._tensor(batch), self._tensor(lengths)
 
     def _container_fold(self, csets, fops, n_rows):
         """Device evaluation of one ``("cfold", ...)`` node (see

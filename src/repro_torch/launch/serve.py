@@ -34,12 +34,13 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import nullcontext
 from functools import partial
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..analysis.runtime import make_lock
 from ..configs import get_config
 from ..core import BitmapIndex, Eq, IndexSpec, IndexWriter
@@ -53,7 +54,7 @@ from ..train import serve_step
 from ..workload import WORKLOAD_STATS
 from . import mesh as mesh_mod
 
-__all__ = ["BIN_WIDTH", "PhaseProfile", "SegmentedAdmission", "main",
+__all__ = ["BIN_WIDTH", "SegmentedAdmission", "main",
            "make_requests", "pack_batches", "padding_waste"]
 
 
@@ -268,30 +269,25 @@ def pack_batches(lengths, batch_size, histogram_aware=True, backend="torch",
     return [order[i : i + batch_size] for i in range(0, n, batch_size)]
 
 
-class PhaseProfile:
-    """Wall-clock accounting per serving phase — the top-phases summary
-    ``serve --profile`` prints next to the torch.profiler trace.  Spans
-    are cheap enough to always run; callers synchronise with the device
-    inside a span only when profiling, so honest per-phase attribution
-    never perturbs the unprofiled path's asynchronous launches."""
+def _phases(before: dict) -> dict:
+    """Seconds of each ``serve.<phase>`` span recorded since ``before``
+    (a ``tracing.snapshot()["spans"]``).  Unprofiled, a span times the
+    enqueue: only ``--profile`` synchronises with the device inside it, so
+    the phases never perturb the unprofiled path's asynchronous launches."""
+    out = {}
+    for name, t in tracing.snapshot()["spans"].items():
+        was = before.get(name, {"s": 0.0, "n": 0})
+        if name.startswith("serve.") and t["n"] > was["n"]:
+            out[name[len("serve."):]] = t["s"] - was["s"]
+    return out
 
-    def __init__(self):
-        self.acc: dict = {}
 
-    @contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.acc[name] = (self.acc.get(name, 0.0)
-                              + time.perf_counter() - t0)
-
-    def report(self, total: float | None = None) -> None:
-        tot = total or sum(self.acc.values()) or 1.0
-        print("# top serving phases (wall-clock)")
-        for name, s in sorted(self.acc.items(), key=lambda kv: -kv[1]):
-            print(f"  {name:<12} {s * 1e3:9.1f} ms  {s / tot:6.1%}")
+def _report(phases: dict) -> None:
+    """The top-phases summary ``serve --profile`` prints."""
+    tot = sum(phases.values()) or 1.0
+    print("# top serving phases (wall-clock)")
+    for name, s in sorted(phases.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:<12} {s * 1e3:9.1f} ms  {s / tot:6.1%}")
 
 
 def padding_waste(lengths, batches):
@@ -389,8 +385,16 @@ def main(argv=None):
         # batches the data axis does not divide are replicated
         rules = {"batch": None} if args.batch % mesh_axes(mesh)["data"] \
             else None
-    with nullcontext() if mesh is None else ShardingCtx(mesh, rules):
-        return _serve(args, cfg, rng, device, mesh, rank, rules)
+    # the phases are the serving loop's own spans (``serve.*``), recorded
+    # on every run; the backend's spans record beside them.  The switch is
+    # process-wide: a second run in this process that ends first turns the
+    # spans off under this one (docs/tracing_torch.md)
+    prev = tracing.enable()
+    try:
+        with nullcontext() if mesh is None else ShardingCtx(mesh, rules):
+            return _serve(args, cfg, rng, device, mesh, rank, rules)
+    finally:
+        tracing.enable(prev)
 
 
 def _broadcast(obj, mesh):
@@ -420,7 +424,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
 
     lengths = make_requests(args.requests, rng)
     waste = {}
-    prof = PhaseProfile()
+    before = tracing.snapshot()["spans"]
     batches = None
     if rank == 0:
         # admission runs on rank 0; the packed batches are broadcast
@@ -434,7 +438,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
                 f"admission {args.admission}, "
                 f"hosts {args.hosts}): "
                 f"padding waste {waste[mode]:.1%}")
-        with prof.span("pack"):
+        with tracing.span("serve.pack", device=True):
             batches = pack_batches(lengths, args.batch, histogram_aware=True,
                                    hosts=args.hosts, **pack)
     waste, batches = _broadcast((waste, batches), mesh)
@@ -469,7 +473,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
                 tokens = sharding.distribute({"inputs": tokens},
                                              tok_sh)["inputs"]
             # fused prefill: one forward pass fills the whole KV cache
-            with prof.span("prefill"):
+            with tracing.span("serve.prefill", device=True):
                 logits, cache = prefill_with_cache(params, cfg, tokens,
                                                    args.max_len)
                 if args.profile:
@@ -479,7 +483,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
             cache_len = prompt_len
             generated += b
             for _ in range(args.gen_tokens - 1):
-                with prof.span("decode"):
+                with tracing.span("serve.decode", device=True):
                     tok, cache = serve_step(params, tok, cache, cache_len,
                                             cfg=cfg)
                     if args.profile:
@@ -491,6 +495,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
         # the clock stops after the device has finished, not at the enqueue
         _sync(device)
     dt = time.time() - t0
+    phases = _phases(before)
     outputs = [torch.cat([sharding.gather(t) for t in steps], 1)[:b]
                .cpu().numpy() for b, steps in outputs
                if device.type != "meta"]
@@ -501,7 +506,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
         path = os.path.join(args.profile, "serve_trace.json")
         trace.export_chrome_trace(path)
         say(f"profiler trace written to {path}")
-        prof.report()
+        _report(phases)
     if args.plan_stats and rank == 0:
         PLAN_STATS.autotune()
         PLAN_STATS.save(args.plan_stats)
@@ -511,7 +516,7 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
         say(f"workload-stats saved to {args.workload_stats}: "
             f"{WORKLOAD_STATS.stats()}")
     return {"waste": waste, "requests": len(lengths), "tokens": generated,
-            "seconds": dt, "phases": dict(prof.acc), "outputs": outputs}
+            "seconds": dt, "phases": phases, "outputs": outputs}
 
 
 if __name__ == "__main__":
