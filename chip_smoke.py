@@ -7,10 +7,10 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the eleven CUDA libraries from ``src/repro_torch/csrc`` with nvcc
+1. builds the twelve CUDA libraries from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, prints the card's name and power limit, and prints ptxas's
    registers, stack frame, spills and shared memory for every
-   instantiation of every kernel of the eleven (``PTXAS_CHECKED``),
+   instantiation of every kernel of the twelve (``PTXAS_CHECKED``),
    failing if any has a stack frame or a spill beyond ``PTXAS_ALLOWED``,
    which names one kernel (``ewah_decode_kernel_markers``) with its bytes
    as ceilings; then runs the port's static lint, ``python -m
@@ -28,7 +28,9 @@ reference package, and:
    times it beside its bound, and profiles that batch's device program
    for decode's share of it and its device launches a decode call; and
    holds and times ``ewah_decode`` on a synthetic worst-case batch (55
-   streams in which every word is a marker) with the same bound;
+   streams in which every word is a marker) with the same bound; and
+   holds and times ``ewah_encode`` on the largest batch's answers and on
+   one answer of the DBGEN cell's 436,812 words;
 4. path phase: answers both mixes through ``BitmapIndex.query_many`` and
    ``query_compressed`` on ``TorchBackend()`` and ``TorchBackend(fuse=False)``,
    requires EWAH streams identical to the host ``NumpyBackend`` and row ids
@@ -241,10 +243,15 @@ KERNELS = {
     # no Pallas counterpart: the reference walks with lax.while_loop
     "ewah_and_popcount": ("src/repro_torch/csrc/ewah_and_popcount.cu",
                           "src/repro/core/ewah_stream.py:520"),
+    # no Pallas counterpart: the reference encodes with jnp scans and
+    # scatters up to MAX_DIRTY words a row, and on the host past that
+    "ewah_encode": ("src/repro_torch/csrc/ewah_encode.cu",
+                    "src/repro/core/ewah_jax.py:50"),
 }
 CONTAINER_ROWS = 1_000_000           # 16 Roaring chunks of 65,536 rows
 CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
 LINEITEM_SF10_ROWS = 59_986_052      # TPC-H lineitem at scale factor 10
+DBGEN_CELL_WORDS = 436_812           # a bitmap of DBGEN's 13,977,980 rows
 # the lifecycle phase's sealed batches; the rest of the table stays open
 LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
 SF1_ROWS = 6_001_215                 # TPC-H SF 1 lineitem
@@ -493,8 +500,9 @@ PTXAS_CHECKED = {
     # the short route's kernel and the wide route's two
     "ewah_and_popcount": (r"(ewah_and_popcount_kernel|ewah_pair_chain_kernel"
                           r"|ewah_pair_tiles_kernel)", 3),
-    # the decode's two phases
+    # the decode's two phases, the encoder's two
     "ewah_decode": (r"ewah_decode_kernel_(markers|expand)", 2),
+    "ewah_encode": (r"ewah_encode_kernel_(tiles|write)", 2),
     "bitpack": (r"bitpack_kernelILi(\d+)E", 2),  # 16 or 1 columns a thread
     # the elementwise kernels: 16-byte (V = 4) and 4-byte (V = 1) accesses
     "gray": (r"gray_kernelILi(\d)E", 2),
@@ -517,13 +525,14 @@ PTXAS_ALLOWED = {"ewah_decode markers": {"stack_frame": 40,
 
 
 def kernel_resources(build, planfuse):
-    """ptxas's report for every kernel of the eleven libraries, each
+    """ptxas's report for every kernel of the twelve libraries, each
     instantiation: planfuse_kernel (depth class D, V words a thread; its
     shared memory is all static: code, push list and ring),
     moe_route_kernel (NC mask words, 16-byte reads), the histogram kernels
     (regime, template arguments), the container kernels
     (containerops_kernel's words a thread, and member_kernel), the three
-    ewah_and_popcount kernels, the decode's two, bitpack_kernel (16 or 1
+    ewah_and_popcount kernels, the decode's two, the encoder's two,
+    bitpack_kernel (16 or 1
     columns a thread) and the elementwise gray, recompress, slicefold and
     wordops kernels (16- and 4-byte accesses); fails unless every stack
     frame and spill is 0 bytes, or within ``PTXAS_ALLOWED`` for the kernel
@@ -641,7 +650,52 @@ def kernel_phase(torch, T, idx, plans, device, reps):
     out["ewah_decode"]["split_ms"] = split = decode_split(
         torch, batch, lengths, W, reps, flush)
     log(f"[kernels] ewah_decode on the largest batch, by kernel: {split}")
+    # the encoder on the batch's answers, then on one answer of the DBGEN
+    # cell's width (the batch's first answer repeated to 436,812 words)
+    out["ewah_encode"] = encode_timed(torch, "largest batch", words, reps,
+                                      flush)
+    row = words[0].repeat(-(-DBGEN_CELL_WORDS // W))[:DBGEN_CELL_WORDS]
+    out["ewah_encode"]["dbgen_cell_answer"] = encode_timed(
+        torch, "one DBGEN-cell answer", row[None].contiguous(), reps, flush)
     return out
+
+
+def encode_timed(torch, label, words, reps, flush):
+    """``ewah_encode`` on (B, n) words and their classes, held against its
+    plain version (``ewah_torch.compress_from_runs`` on the card: streams
+    within their lengths, lengths, overflow flags) and timed beside it and
+    its bound: the words and classes read once, the streams written
+    once."""
+    from repro_torch.core import ewah_torch
+    from repro_torch.kernels import ops
+
+    B, n = words.shape
+    kind = ewah_torch.classify(words)
+    cap = ewah_torch.stream_capacity(n)
+    kern = lambda: ops.ewah_encode(words, kind, cap)  # noqa: E731
+    plain = lambda: ewah_torch.compress_from_runs(words, kind, cap)  # noqa
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    keep = torch.arange(cap, device=words.device)[None, :] < want[1][:, None]
+    mism = (int(((got[0] != want[0]) & keep).sum())
+            + int((got[1] != want[1]).sum()) + int((got[2] != want[2]).sum()))
+    check(mism == 0, f"ewah_encode ({label}) disagrees with its plain version")
+    nbytes = 8 * B * n + 4 * int(want[1].sum()) + 8 * B
+    bound_ms, bound_by = bound(nbytes, 0)
+    entry = {"max_abs_err": 0, "mismatches": mism,
+             "ms": event_ms(torch, kern, reps, flush),
+             "plain_ms": event_ms(torch, plain, max(1, reps // 4), flush,
+                                  rounds=3),
+             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+             "shape": [B, n], "stream_words": int(want[1].sum()),
+             "overflow_rows": int(want[2].sum())}
+    log(f"[kernels] ewah_encode on {label} ({B} x {n} words, "
+        f"{entry['stream_words']} stream words, {entry['overflow_rows']} "
+        f"rows past one marker a group): mismatches 0 (tolerance 0: bit "
+        f"identity), {entry['ms']:.5f} ms (bound {bound_ms:.5f} ms, "
+        f"{bound_ms / max(entry['ms'], 1e-9):.1%} of it), plain "
+        f"{entry['plain_ms']:.5f} ms")
+    return entry
 
 
 def path_phase(torch, T, name, cols, idx, preds, device):
@@ -681,8 +735,9 @@ def path_phase(torch, T, name, cols, idx, preds, device):
                 bad += 1
                 log(f"[path] {name} {mode}: MISMATCH on {p!r}")
         check(bad == 0, f"{name} {mode}: {bad} predicates disagree")
-        need = (["ewah_decode", "planfuse"] if fuse else
-                ["ewah_decode", "wordops", "slicefold", "recompress"])
+        need = (["ewah_decode", "planfuse", "ewah_encode"] if fuse else
+                ["ewah_decode", "wordops", "slicefold", "recompress",
+                 "ewah_encode"])
         for k in need:  # CPU tensors take the plain versions: no launches
             check(device == "cpu" or launches[k] > 0,
                   f"{name} {mode}: {k} never launched")
@@ -714,8 +769,9 @@ def path_phase(torch, T, name, cols, idx, preds, device):
 def time_split(torch, T, plans, device):
     """One fused compressed batch of the mix on a fresh backend, split by
     the backend's own spans (``repro_torch.tracing``): grouping and
-    padding, the host-to-device copy, the device program with its copy
-    back, and the host re-encode when the rows need one."""
+    padding, the host-to-device copy, and the device program (decode,
+    evaluate, encode) with its copy back; and the answers the device
+    encoder wrote."""
     from repro_torch import tracing
 
     be = T.TorchBackend(device=device)
@@ -736,6 +792,7 @@ def time_split(torch, T, plans, device):
     split["stream_bytes_total"] = counters["backend.stream_bytes"]
     split["h2d_bytes_per_batch_mean"] = (counters["backend.h2d_bytes"]
                                          / max(1, split["batches"]))
+    split["encoded"] = counters["backend.encoded"]
     log("[split] " + ", ".join(f"{k} {v:.6g}" for k, v in split.items()))
     return split
 

@@ -2,25 +2,28 @@
 
 Port of the reference package's in-graph codec (``repro.core.ewah_jax``).
 Torch has no ``vmap``, so every function here takes a batch of rows
-``(B, n)`` and returns one result per row.  Compression is the same
-classify -> run labelling -> exclusive scan -> scatter recipe, with
-``jax.ops.segment_*`` replaced by ``scatter_reduce``/``scatter_add`` over
-row-offset segment ids.  Decompression is the hand-written
-``ewah_decode`` CUDA kernel on the device (``kernels.ops.ewah_decode``);
-the reference's ``lax.scan`` has no torch counterpart.
+``(B, n)`` and returns one result per row.  Compression is the
+hand-written ``ewah_encode`` CUDA kernel on the device
+(``kernels.ops.ewah_encode``); its plain version here
+(:func:`compress_from_runs`) writes each word's part of the stream from
+its run (class, offset, length, and the dirty run after a clean one) at
+an exclusive scan of the counts.  Unlike the reference, which holds one
+marker a (clean, dirty) group and so at most ``MAX_DIRTY`` words a row,
+both split a clean run at ``MAX_CLEAN`` and a dirty run at ``MAX_DIRTY``
+as ``ewah.compress`` does, so any row length encodes.  Decompression is
+the hand-written ``ewah_decode`` CUDA kernel on the device
+(``kernels.ops.ewah_decode``); the reference's ``lax.scan`` has no torch
+counterpart.
 
 Words are ``int32`` bit-views of the uint32 EWAH words: all-ones is -1,
 and every right shift is masked.  Offsets and indices are int64.
-
-Restriction (asserted): one marker per (clean, dirty) group, i.e. at most
-``MAX_DIRTY`` words per row, exactly as in the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .ewah import MAX_DIRTY
+from .ewah import MAX_CLEAN, MAX_DIRTY
 
 # clean-1 word as an int32 bit-view
 FULL = -1
@@ -43,21 +46,22 @@ def run_starts(kind: torch.Tensor) -> torch.Tensor:
 
 
 def compress(words: torch.Tensor, capacity: int):
-    """EWAH-compress each row of ``words`` (B, n) int32.
+    """EWAH-compress each row of ``words`` (B, n) int32: the
+    ``ewah_encode`` kernel on a CUDA tensor, its plain version
+    (:func:`compress_from_runs`) on a CPU tensor.
 
-    Returns (streams (B, capacity) int32, lengths (B,) int64).
+    Returns (streams (B, capacity) int32, lengths (B,) int32).
     """
-    kind = classify(words)
-    return compress_from_runs(words, kind, run_starts(kind), capacity)
+    from ..kernels import ops
+
+    streams, lengths, _ = ops.ewah_encode(words, classify(words), capacity)
+    return streams, lengths
 
 
-def _segment(values, seg, n_seg, reduce):
-    """Segment reduction over flattened row-offset ids (empty segments
-    give 0; every caller masks them)."""
-    out = torch.zeros(n_seg, dtype=values.dtype, device=values.device)
-    if reduce == "sum":
-        return out.scatter_add_(0, seg, values)
-    return out.scatter_reduce_(0, seg, values, reduce, include_self=True)
+def stream_capacity(n: int) -> int:
+    """Words that hold the EWAH stream of any n-word row: every word
+    verbatim, one marker, and one more marker each ``MAX_DIRTY`` words."""
+    return n + 1 + n // MAX_DIRTY
 
 
 def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -66,72 +70,73 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def compress_from_runs(words: torch.Tensor, kind: torch.Tensor,
-                       start: torch.Tensor, capacity: int):
-    """Scan/scatter epilogue of the vectorized compressor, batched.
+                       capacity: int):
+    """The canonical EWAH stream of each row, batched: the plain version
+    of the ``ewah_encode`` kernel, bit-identical to ``ewah.compress``.
 
-    ``words``, ``kind`` (0/1/2 per word) and ``start`` (run-start flags,
-    ``start[:, 0] == 1``) are (B, n).  They come from :func:`classify` +
-    :func:`run_starts`, from the recompress kernel, or from the fused
-    planfuse kernel's ``kind``.  Returns (streams (B, capacity) int32,
-    lengths (B,) int64).
+    ``words`` and ``kind`` (0/1/2 per word: :func:`classify`, the
+    recompress kernel's, or the fused planfuse kernel's) are (B, n).  Each
+    word's output is a function of its class c, its offset r inside its
+    run, its run's length L and, for a clean run, the length nd of the
+    dirty run right after it (0 if none):
+
+    * a clean word writes one marker where ``r % MAX_CLEAN == 0``:
+      ``(c, L - r, min(nd, MAX_DIRTY))`` for the run's last chunk,
+      ``(c, MAX_CLEAN, 0)`` before it;
+    * a dirty word writes itself, after a marker ``(0, 0, min(MAX_DIRTY,
+      L - r))`` where ``r % MAX_DIRTY == 0`` and either ``r > 0`` or the
+      run opens the row;
+
+    at the exclusive prefix sum of those counts in its row.  Words past
+    ``capacity`` are dropped; the length is the whole stream's.  Returns
+    (streams (B, capacity) int32, lengths (B,) int32, overflow (B,)
+    int32), where ``overflow`` is 1 for a row with a clean run longer than
+    ``MAX_CLEAN`` or a dirty run longer than ``MAX_DIRTY``: the markers a
+    single marker a group could not write.
     """
     B, n = words.shape
-    assert n <= MAX_DIRTY, f"vectorized path supports <= {MAX_DIRTY} words"
     dev = words.device
     i64 = torch.int64
-    idx = torch.arange(n, device=dev, dtype=i64)
-    row_off = (torch.arange(B, device=dev, dtype=i64) * n)[:, None]
+    if n == 0:
+        zero = torch.zeros(B, dtype=torch.int32, device=dev)
+        return (torch.zeros(B, capacity, dtype=torch.int32, device=dev),
+                zero, zero.clone())
+    idx = torch.arange(n, device=dev, dtype=i64).expand(B, n)
+    k = kind.to(i64)
+    start = run_starts(kind).bool()
+    end = torch.ones_like(start)
+    end[:, :-1] = start[:, 1:]
+    s = torch.cummax(torch.where(start, idx, 0), dim=1).values
+    e = torch.cummin(torch.where(end, idx, n).flip(1), dim=1).values.flip(1)
+    L = e - s + 1
+    r = idx - s
+    clean = k < 2
+    nxt = torch.clamp(e + 1, max=n - 1)
+    nd = torch.where(clean & (e + 1 < n) & (k.gather(1, nxt) == 2),
+                     L.gather(1, nxt), 0)
 
-    run_id = torch.cumsum(start.to(i64), dim=1) - 1            # (B, n)
-    n_runs = run_id[:, -1:] + 1                                # (B, 1)
-    seg = (run_id + row_off).reshape(-1)
-    run_kind = _segment(kind.to(i64).reshape(-1), seg, B * n,
-                        "amax").reshape(B, n)
-    run_len = _segment(torch.ones(B * n, dtype=i64, device=dev), seg,
-                       B * n, "sum").reshape(B, n)
-    run_valid = idx[None, :] < n_runs
+    cmark = clean & (r % MAX_CLEAN == 0)
+    dmark = ~clean & (r % MAX_DIRTY == 0) & ((r > 0) | (s == 0))
+    emit = torch.where(clean, cmark.to(i64), 1 + dmark.to(i64))
+    off = torch.cumsum(emit, dim=1) - emit
+    total = emit.sum(dim=1)
 
-    # groups: every clean run opens a group; a leading dirty run opens one
-    run_is_clean = run_kind < 2
-    grp_start = run_is_clean | (idx == 0)[None, :]
-    grp_of_run = torch.cumsum((grp_start & run_valid).to(i64), dim=1) - 1
-    last_run = torch.clamp(n_runs - 1, min=0)
-    n_groups = torch.clamp(grp_of_run.gather(1, last_run) + 1, min=1)
-
-    gseg = (grp_of_run + row_off).reshape(-1)
-    clean_valid = run_is_clean & run_valid
-    grp_nclean = _segment(torch.where(clean_valid, run_len, 0).reshape(-1),
-                          gseg, B * n, "sum").reshape(B, n)
-    grp_ndirty = _segment(
-        torch.where(~run_is_clean & run_valid, run_len, 0).reshape(-1),
-        gseg, B * n, "sum").reshape(B, n)
-    grp_ctype = _segment(torch.where(clean_valid, run_kind, 0).reshape(-1),
-                         gseg, B * n, "amax").reshape(B, n)
-
-    grp_live = idx[None, :] < n_groups
-    grp_size = torch.where(grp_live, 1 + grp_ndirty, 0)
-    grp_off = torch.cumsum(grp_size, dim=1) - grp_size        # exclusive
-    last_grp = torch.clamp(n_groups - 1, min=0)
-    total = (grp_off.gather(1, last_grp)
-             + grp_size.gather(1, last_grp)).reshape(B)
-
-    # markers, assembled in int64 and wrapped to the int32 bit-view
-    marker = _to_int32_bits((grp_ctype << 31) | (grp_nclean << 15)
-                            | grp_ndirty)
+    last = r + MAX_CLEAN >= L
+    marker = torch.where(
+        clean,
+        (k << 31) | (torch.where(last, L - r, MAX_CLEAN) << 15)
+        | torch.where(last, torch.clamp(nd, max=MAX_DIRTY), 0),
+        torch.clamp(L - r, max=MAX_DIRTY))
     out = torch.zeros(B, capacity + 1, dtype=torch.int32, device=dev)
     # slot ``capacity`` is the spare that takes every dropped write
-    mpos = torch.where(grp_live & (grp_off < capacity), grp_off, capacity)
-    out.scatter_(1, mpos, marker)
-
-    # dirty word i goes to grp_off[g] + 1 + its rank inside its dirty run
-    word_grp = grp_of_run.gather(1, run_id)
-    run_first = torch.cummax(torch.where(start.bool(), idx[None, :], 0),
-                             dim=1).values
-    t = idx[None, :] - run_first
-    dpos = grp_off.gather(1, word_grp) + 1 + t
-    dpos = torch.where((kind == 2) & (dpos < capacity), dpos, capacity)
+    mpos = torch.where((cmark | dmark) & (off < capacity), off, capacity)
+    out.scatter_(1, mpos, _to_int32_bits(marker))
+    dpos = off + dmark.to(i64)
+    dpos = torch.where(~clean & (dpos < capacity), dpos, capacity)
     out.scatter_(1, dpos, words.to(torch.int32))
-    return out[:, :capacity], total
+    overflow = (torch.where(clean, L > MAX_CLEAN, L > MAX_DIRTY)).any(dim=1)
+    return (out[:, :capacity], total.to(torch.int32),
+            overflow.to(torch.int32))
 
 
 def compressed_size(words: torch.Tensor) -> torch.Tensor:

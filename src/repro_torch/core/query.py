@@ -1152,9 +1152,11 @@ class TorchBackend:
     one pass.  Plans the kernel cannot run (``kernels.planfuse.fits``: tape
     too long or operand stack too deep) take the per-stage path instead:
     ``wordops_fold`` per tree level, ``slice_fold`` per comparison and the
-    ``recompress`` kernel at the root.  Compressed results re-encode on the
-    device (``ewah_torch.compress_from_runs``) up to ``MAX_DIRTY`` words a
-    row and on the host above it, exactly as the reference does.  Roaring
+    ``recompress`` kernel at the root.  Compressed results encode on the
+    device with the ``ewah_encode`` kernel at any row length, the
+    canonical stream ``ewah.compress`` writes, and come back with their
+    lengths in one copy a group; nothing re-encodes on the host (the
+    reference does past ``MAX_DIRTY`` words).  Roaring
     columns' ``("cfold", ...)`` nodes of all the call's plans fold first
     (:func:`lower_containers_many`), every fold of the call in one
     ``containerops`` launch (:meth:`_container_fold_many`).
@@ -1197,8 +1199,13 @@ class TorchBackend:
     def execute_compressed_many(self, plans):
         """Batched compressed-in/compressed-out execution: uncached plans
         group exactly like ``execute_many``, but the device program ends
-        with the re-encode, so results come back as EWAH streams and
-        whole-plan results land in ``result_cache``."""
+        with the ``ewah_encode`` kernel, so results come back as EWAH
+        streams and whole-plan results land in ``result_cache``.  Under
+        tracing, ``backend.encoded`` counts the answers the kernel wrote
+        and ``backend.encoded_overflow`` those among them whose stream
+        splits a run at ``MAX_CLEAN`` or ``MAX_DIRTY``."""
+        from ..kernels import ops as kops
+
         with tracing.span("backend.call", device=True):
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
@@ -1221,24 +1228,16 @@ class TorchBackend:
                 batch, lengths = self._pad_group(plans, idxs, cap)
                 n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
                 dev_batch = self._to_device(batch, lengths)
-                if n_words <= ewah.MAX_DIRTY:
-                    with tracing.span("backend.device", device=True):
-                        streams, lens = self._run(root, *dev_batch, n_words,
-                                                  compressed=True)
-                        streams = streams.cpu().numpy().view(np.uint32)
-                        lens = lens.cpu().numpy()
-                    enc = [streams[b, : lens[b]] for b in range(len(idxs))]
-                else:
-                    # beyond the single-marker-per-group limit of the
-                    # vectorized emit (~1M rows) the re-encode happens
-                    # host-side
-                    with tracing.span("backend.device", device=True):
-                        words = self._run(root, *dev_batch, n_words)
-                        words = words.cpu().numpy().view(np.uint32)
-                    enc = []
-                    for b in range(len(idxs)):
-                        with tracing.span("backend.reencode"):
-                            enc.append(ewah.compress(words[b]))
+                with tracing.span("backend.device", device=True):
+                    dev_streams = self._run(root, *dev_batch, n_words,
+                                            compressed=True)[0]
+                    host = kops.encoded_flat(dev_streams).cpu().numpy()
+                streams, lens, over = kops.split_encoded(
+                    host.view(np.uint32), *dev_streams.shape)
+                if tracing.enabled():
+                    tracing.add("backend.encoded", len(idxs))
+                    tracing.add("backend.encoded_overflow", int(over.sum()))
+                enc = [streams[b, : lens[b]] for b in range(len(idxs))]
                 for b, i in enumerate(idxs):
                     res = maybe_validate(
                         EwahStream(enc[b], n_rows, plans[i].leaf_words()),
@@ -1321,11 +1320,9 @@ class TorchBackend:
         """Folds in one ``containerops`` launch: the sets go up once in
         compact form (``kernels.containers.pack_folds``: arrays and runs
         expand on the card, a chunk an "and" set lacks is an ``ABSENT``
-        step), the kernel writes each fold's dense plane, and each plane
-        re-encodes on the device with
-        ``ewah_torch.compress`` up to ``MAX_DIRTY`` words (on the host
-        with ``ewah.compress`` above it, as ``execute_compressed_many``
-        does).  Streams and lengths come back in one copy.  ``to_stream``
+        step), the kernel writes each fold's dense plane, and the
+        ``ewah_encode`` kernel encodes each plane on the device, at any
+        width.  Streams and lengths come back in one copy.  ``to_stream``
         depends only on the set bits, so the streams equal
         ``containers.fold``'s."""
         import torch
@@ -1337,34 +1334,27 @@ class TorchBackend:
         order = sorted(range(len(folds)), key=lambda i: folds[i][2])
         packed = kc.pack_folds([folds[i] for i in order])
         planes = kops.container_fold(self._tensor(packed.buf), packed)
-        parts, spans = [], []       # spans: (W, F, device-encoded) a group
+        parts, groups = [], []       # groups: (F, capacity) a plane width
         f = 0
         while f < len(order):
             off, W = packed.planes[f]
             F = sum(1 for g in packed.planes[f:] if g[1] == W)
             group = planes[off: off + F * W].reshape(F, W)
-            if W <= ewah.MAX_DIRTY:
-                streams, lens = ewah_torch.compress(group, W + 1)
-                parts += [streams.reshape(-1), lens.to(torch.int32)]
-            else:
-                parts.append(group.reshape(-1))
-            spans.append((W, F, W <= ewah.MAX_DIRTY))
+            cap = ewah_torch.stream_capacity(W)
+            streams, _, _ = kops.ewah_encode(group, ewah_torch.classify(group),
+                                             cap)
+            parts.append(kops.encoded_flat(streams))
+            groups.append((F, cap))
             f += F
         host = torch.cat(parts).cpu().numpy().view(np.uint32)
         out: list = [None] * len(folds)
         at = f = 0
-        for W, F, encoded in spans:
-            if encoded:
-                streams = host[at: at + F * (W + 1)].reshape(F, W + 1)
-                lens = host[at + F * (W + 1): at + F * (W + 2)]
-                enc = [streams[j, : lens[j]].copy() for j in range(F)]
-                at += F * (W + 2)
-            else:
-                words = host[at: at + F * W].reshape(F, W)
-                enc = [ewah.compress(words[j]) for j in range(F)]
-                at += F * W
+        for F, cap in groups:
+            streams, lens, _ = kops.split_encoded(
+                host[at: at + F * (cap + 2)], F, cap)
             for j in range(F):
-                out[order[f + j]] = enc[j]
+                out[order[f + j]] = streams[j, : lens[j]].copy()
+            at += F * (cap + 2)
             f += F
         return out
 
@@ -1401,9 +1391,11 @@ class TorchBackend:
     def _run(self, root, batch, lengths, n_words: int,
              compressed: bool = False):
         """The device program of one group: decode, evaluate, and (when
-        ``compressed``) re-encode.  ``batch`` (B, m, C) and ``lengths``
-        (B, m) lie on the device.  Returns (B, W) words, or (streams
-        (B, W + 1), lengths (B,)) when compressed."""
+        ``compressed``) encode.  ``batch`` (B, m, C) and ``lengths``
+        (B, m) lie on the device.  Returns (B, W) words, or, when
+        compressed, ``ops.ewah_encode``'s (streams (B,
+        ``ewah_torch.stream_capacity(W)``), lengths (B,), overflow (B,)),
+        views of one buffer."""
         import torch
 
         from . import ewah_torch
@@ -1419,12 +1411,8 @@ class TorchBackend:
             words = flat.reshape(B, n_words)
             if not compressed:
                 return words
-            kind = kflat.reshape(B, n_words)
-            # per-row run starts from the fused classification: word 0
-            # always opens a run (recompress_batch's opposite-class
-            # sentinel reduces to exactly this), then any class change
-            return ewah_torch.compress_from_runs(
-                words, kind, ewah_torch.run_starts(kind), n_words + 1)
+            return kops.ewah_encode(words, kflat.reshape(B, n_words),
+                                    ewah_torch.stream_capacity(n_words))
 
         def ev(node):
             if node[0] == "leaf":
@@ -1452,9 +1440,8 @@ class TorchBackend:
         words = ev(root)
         if not compressed:
             return words
-        # worst-case EWAH size for n words is n + 1 (all-dirty: one
-        # marker + n verbatim words; clean groups only shrink it)
-        return kops.recompress_batch(words, n_words + 1)
+        return kops.recompress_batch(words,
+                                     ewah_torch.stream_capacity(n_words))
 
 
 def _capacity_bucket(n: int) -> int:

@@ -21,6 +21,7 @@ from . import bitpack as _bitpack
 from . import containers as _containers
 from . import ewah_and_popcount as _and_popcount
 from . import ewah_decode as _decode
+from . import ewah_encode as _encode
 from . import gray as _gray
 from . import histmm as _histmm
 from . import moe_route as _moe_route
@@ -33,7 +34,8 @@ from . import wordops as _wordops
 #: Launches of each kernel since the last :func:`reset_launches`.
 LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
             "ewah_decode": 0, "containerops": 0, "member": 0, "bitpack": 0,
-            "gray": 0, "histogram": 0, "moe_route": 0, "ewah_and_popcount": 0}
+            "gray": 0, "histogram": 0, "moe_route": 0, "ewah_and_popcount": 0,
+            "ewah_encode": 0}
 
 _OP_NAMES = ("and", "or", "xor")
 
@@ -181,19 +183,77 @@ def recompress_flags(w, p):
 
 
 def recompress_batch(words, capacity):
-    """(B, W) dense word rows -> (streams (B, capacity), lengths (B,)).
+    """(B, W) dense word rows -> (streams (B, capacity), lengths (B,),
+    overflow (B,)), as :func:`ewah_encode` gives them.
 
     Rows get an opposite-class sentinel as word 0's predecessor, so runs
     never bleed across rows; one recompress launch classifies the whole
-    batch, then the scan/scatter epilogue (``ewah_torch.compress_from_runs``)
-    emits every row's stream.  Requires W <= 2**15 - 1.
+    batch, then :func:`ewah_encode` writes every row's stream, at any W.
     """
     B, W = words.shape
     sent = torch.where(words[:, :1] == 0, -1, 0).to(torch.int32)
     prev = torch.cat([sent, words[:, :-1]], dim=1)
-    kind, start = recompress_flags(words.reshape(-1), prev.reshape(-1))
-    return ewah_torch.compress_from_runs(
-        words, kind.reshape(B, W), start.reshape(B, W), capacity)
+    kind, _ = recompress_flags(words.reshape(-1), prev.reshape(-1))
+    return ewah_encode(words, kind.reshape(B, W), capacity)
+
+
+def ewah_encode(words, kind, capacity: int):
+    """(B, n) int32 words and their EWAH classes (0 clean-0, 1 clean-1,
+    2 dirty) -> each row's canonical EWAH stream, bit-identical to
+    ``ewah.compress`` at any n: (streams (B, capacity), lengths (B,),
+    overflow (B,)) int32.
+
+    ``overflow`` is 1 for a row whose stream splits a clean run at
+    ``MAX_CLEAN`` or a dirty run at ``MAX_DIRTY``.
+    ``ewah_torch.stream_capacity(n)`` words hold any n-word row; words past
+    ``capacity`` are dropped, and a length stays its whole stream's.
+    Stream words past a row's length are unspecified.  The three results
+    are views, in this order, of one buffer (:func:`encoded_flat`), so one
+    copy brings them to the host.  The two kernels of ``ewah_encode.cu``
+    on a CUDA tensor, one count a call; ``ewah_torch.compress_from_runs``
+    on a CPU tensor.
+    """
+    if words.dim() != 2 or words.shape != kind.shape:
+        raise ValueError(f"ewah_encode: (B, n) words and classes expected, "
+                         f"got {tuple(words.shape)} and {tuple(kind.shape)}")
+    B, n = words.shape
+    if not (0 <= n < 2**30 and 0 <= capacity < 2**31):
+        raise ValueError(f"ewah_encode: n {n} outside [0, 2**30) or "
+                         f"capacity {capacity} outside [0, 2**31)")
+    flat = torch.empty(B * (capacity + 2), dtype=torch.int32,
+                       device=words.device)
+    streams, lengths, overflow = split_encoded(flat, B, capacity)
+    if _on_cpu(words, kind):
+        for out, part in zip((streams, lengths, overflow),
+                             ewah_torch.compress_from_runs(words, kind,
+                                                           capacity)):
+            out.copy_(part)
+        return streams, lengths, overflow
+    _check_cuda("ewah_encode", words, kind)
+    if B > 65535:
+        raise ValueError(f"ewah_encode: {B} rows, at most 65,535 a call")
+    if B and n:
+        _encode.launch(words, kind, capacity, streams, lengths, overflow)
+        LAUNCHES["ewah_encode"] += 1
+    else:
+        flat.zero_()
+    return streams, lengths, overflow
+
+
+def encoded_flat(streams):
+    """The one buffer behind :func:`ewah_encode`'s results, from its
+    ``streams``: (B * (capacity + 2),) int32, the streams, then the
+    lengths, then the overflow flags."""
+    B, C = streams.shape
+    return streams.as_strided((B * (C + 2),), (1,))
+
+
+def split_encoded(flat, B: int, capacity: int):
+    """:func:`encoded_flat`'s buffer (a tensor or, on the host, an array)
+    -> (streams (B, capacity), lengths (B,), overflow (B,))."""
+    return (flat[: B * capacity].reshape(B, capacity),
+            flat[B * capacity: B * (capacity + 1)],
+            flat[B * (capacity + 1):])
 
 
 def ewah_decode(batch, lengths, n_words: int):

@@ -403,6 +403,28 @@ def test_one_launch_fold_batches_many_folds():
     assert n_bitmap == len(distinct)
 
 
+def test_one_launch_fold_past_max_dirty_words():
+    """Planes past ``MAX_DIRTY`` words, which the reference re-encodes on
+    the host, encode on the device program's encoder (its plain version
+    here): a dirty run past ``MAX_DIRTY`` and a clean-1 run past
+    ``MAX_CLEAN``, in one call, as ``containers.fold`` gives them."""
+    rng = np.random.default_rng(28)
+    n1 = 17 * C.CHUNK_ROWS + 901          # 34,845 words
+    n2 = 34 * C.CHUNK_ROWS + 5            # 69,633 words
+    assert -(-n1 // 32) > ewah.MAX_DIRTY and -(-n2 // 32) > ewah.MAX_CLEAN
+    dense = np.flatnonzero(rng.random(n1) < 0.5)
+    sparse = np.unique(rng.integers(0, n1, size=500))
+    tail = np.unique(rng.integers(n2 - 3000, n2, size=200))
+    folds = [([C.from_positions(dense, n1), C.from_positions(sparse, n1)],
+              ("or",), n1),
+             ([C.from_positions(np.arange(n2), n2),
+               C.from_positions(tail, n2)], ("andnot",), n2)]
+    got = TorchBackend(device="cpu")._container_fold_many(folds)
+    for (sets, fops, n), g in zip(folds, got):
+        np.testing.assert_array_equal(g, C.fold(sets, fops, n))
+        assert len(g) <= -(-n // 32) + 1 + -(-n // 32) // ewah.MAX_DIRTY
+
+
 def test_and_folds_keep_the_per_round_route(monkeypatch):
     """Folds with an "and" step and folds without one share the call's
     single container_fold, each plane at its own offset: no

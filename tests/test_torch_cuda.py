@@ -18,10 +18,12 @@ import pytest
 import torch
 
 import repro_torch.core as T
-from repro_torch.core import ewah
+from repro_torch.core import ewah, ewah_torch
 from repro_torch.core.query import NumpyBackend, TorchBackend, compile_plan
 from repro_torch.kernels import ops, ref
 from repro_torch.workload import WorkloadStats
+from torch_encode_cases import CASES as ENCODE_CASES
+from torch_encode_cases import batch as encode_case
 
 pytestmark = pytest.mark.cuda
 
@@ -274,7 +276,72 @@ def test_backend_on_card_matches_numpy(dev, fuse):
                                       np.flatnonzero(T.evaluate_mask(p, cols)))
     used = ["planfuse"] if fuse else ["wordops", "slicefold", "recompress"]
     assert ops.LAUNCHES["ewah_decode"] > 0
-    assert all(ops.LAUNCHES[k] > 0 for k in used), ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in used + ["ewah_encode"]), \
+        ops.LAUNCHES
+
+
+@pytest.mark.parametrize("name", sorted(ENCODE_CASES))
+def test_encode_kernel_matches_plain_version(dev, name):
+    """The ewah_encode kernel against its plain version, bit for bit, on
+    runs at and past each marker limit (tests/torch_encode_cases.py):
+    streams within each length, lengths and overflow flags, one count a
+    call."""
+    words = encode_case(name)
+    x = torch.from_numpy(words.view(np.int32))
+    cap = ewah_torch.stream_capacity(x.shape[1])
+    want = ops.ewah_encode(x, ewah_torch.classify(x), cap)
+    xd = x.to(dev)
+    ops.reset_launches()
+    got = ops.ewah_encode(xd, ewah_torch.classify(xd), cap)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ewah_encode"] == 1
+    g_s, g_l, g_o = (t.cpu() for t in got)
+    w_s, w_l, w_o = want
+    assert torch.equal(g_l, w_l) and torch.equal(g_o, w_o)
+    for b in range(x.shape[0]):
+        assert torch.equal(g_s[b, : w_l[b]], w_s[b, : w_l[b]])
+    host = ops.encoded_flat(got[0]).cpu()
+    for part, whole in zip(ops.split_encoded(host, *got[0].shape),
+                           (g_s, g_l, g_o)):
+        assert torch.equal(part, whole)
+
+
+@pytest.mark.parametrize("cap", [1, 700, 40_000])
+def test_encode_kernel_drops_words_past_capacity(dev, cap):
+    """A capacity below the stream keeps its first words and the whole
+    stream's length, as the plain version does."""
+    words = encode_case("rows_apart")
+    x = torch.from_numpy(words.view(np.int32))
+    want_s, want_l, want_o = ops.ewah_encode(x, ewah_torch.classify(x), cap)
+    xd = x.to(dev)
+    got_s, got_l, got_o = ops.ewah_encode(xd, ewah_torch.classify(xd), cap)
+    assert torch.equal(got_l.cpu(), want_l) and torch.equal(got_o.cpu(),
+                                                            want_o)
+    keep = torch.clamp(want_l, max=cap)
+    for b in range(x.shape[0]):
+        assert torch.equal(got_s[b, : keep[b]].cpu(), want_s[b, : keep[b]])
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_backend_past_max_dirty_on_card_matches_numpy(dev, fuse):
+    """Past MAX_DIRTY words a row every compressed answer encodes on the
+    card (one ewah_encode launch a group), identical to the numpy
+    backend."""
+    r = np.random.default_rng(28)
+    n = 40 * (ewah.MAX_DIRTY + 1)
+    cols = [np.sort(r.integers(0, 3, size=n)), r.integers(0, 5, size=n)]
+    idx = T.BitmapIndex.build(cols, T.IndexSpec(row_order="unsorted",
+                                                column_order="given"))
+    preds = [T.Eq(0, 1), T.Or(T.Eq(0, 2), T.Not(T.Eq(1, 0))),
+             T.And(T.Eq(1, 3), T.Not(T.Eq(0, 0)))]
+    plans = [compile_plan(idx, p) for p in preds]
+    want = NumpyBackend().execute_compressed_many(plans)
+    ops.reset_launches()
+    got = TorchBackend(fuse=fuse, cache_size=0).execute_compressed_many(plans)
+    for s, w in zip(got, want):
+        np.testing.assert_array_equal(s.data, w.data)
+        s.validate()
+    assert ops.LAUNCHES["ewah_encode"] == len(plans), ops.LAUNCHES
 
 
 @pytest.mark.parametrize("P", [3, 16])  # 16-byte path on any P x 2048 words

@@ -18,6 +18,7 @@ import torch
 from repro.core import ewah, ewah_jax
 from repro_torch.core import ewah_torch
 from repro_torch.kernels import ops, ref
+from torch_encode_cases import CASES, batch, overflows
 
 DENSITIES = [0.001, 0.01, 0.05, 0.2, 0.5, 0.8, 0.95, 0.99, 0.999]
 LENGTHS = [1, 2, 31, 32, 33, 100, 1000, 4095]
@@ -103,9 +104,23 @@ def test_codec_at_max_dirty():
 
 
 def test_compress_rejects_rows_past_max_dirty():
-    with pytest.raises(AssertionError, match="supports"):
-        ewah_torch.compress(torch.zeros(1, ewah.MAX_DIRTY + 1,
-                                        dtype=torch.int32), 8)
+    """Rows past ``MAX_DIRTY`` words, which the reference's single-marker
+    compressor rejects, encode as ``ewah.compress`` encodes them: the
+    all-zero row as one marker, and rows whose dirty and clean runs split
+    at the marker limits."""
+    n = ewah.MAX_DIRTY + 1
+    zeros = np.zeros(n, dtype=np.uint32)
+    rng = np.random.default_rng(12)
+    split = rng.integers(1, 0xFFFFFFFF, size=n, dtype=np.uint32)
+    ones = np.full(2 * n + 5, 0xFFFFFFFF, dtype=np.uint32)
+    for words in (np.stack([zeros, split]), ones[None]):
+        cap = ewah_torch.stream_capacity(words.shape[1])
+        streams, lens = ewah_torch.compress(as_torch(words), cap)
+        for b, row in enumerate(words):
+            expect = ewah.compress(row)
+            assert int(lens[b]) == len(expect)
+            np.testing.assert_array_equal(
+                as_u32(streams)[b, : len(expect)], expect)
 
 
 def test_marker_assembly_wraps_to_int32():
@@ -179,3 +194,29 @@ def test_decode_batch_layout_is_plane_major():
     planes = ops.ewah_decode(as_torch(streams), torch.from_numpy(lengths), n)
     assert tuple(planes.shape) == (m, B, n)
     np.testing.assert_array_equal(as_u32(planes), words.transpose(1, 0, 2))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_encoder_matches_oracle_at_every_length(name):
+    """The encoder's plain version (``ops.ewah_encode`` on CPU tensors)
+    against ``ewah.compress``, row by row, on runs at and past each marker
+    limit: bit-identical streams within ``stream_capacity(n)``, and the
+    overflow flag where a run splits."""
+    words = batch(name)
+    B, n = words.shape
+    cap = ewah_torch.stream_capacity(n)
+    streams, lens, over = ops.ewah_encode(
+        as_torch(words), ewah_torch.classify(as_torch(words)), cap)
+    assert streams.shape == (B, cap) and lens.shape == over.shape == (B,)
+    for b in range(B):
+        expect = ewah.compress(words[b])
+        assert int(lens[b]) == len(expect) <= cap
+        np.testing.assert_array_equal(as_u32(streams)[b, : len(expect)],
+                                      expect)
+        assert int(over[b]) == overflows(words[b])
+    if name.startswith("all_dirty"):   # the worst case fills the capacity
+        assert cap - int(lens[0]) == (0 if name.endswith("full") else 1)
+    flat = ops.encoded_flat(streams)
+    for got, part in zip(ops.split_encoded(flat, B, cap),
+                         (streams, lens, over)):
+        assert torch.equal(got, part)

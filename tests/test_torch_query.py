@@ -236,8 +236,10 @@ def test_entry_points_answer_like_evaluate_mask():
 
 
 def test_host_reencode_above_max_dirty():
-    """Rows past MAX_DIRTY words re-encode on the host, as in the
-    reference; results stay identical to the numpy backend."""
+    """Rows past MAX_DIRTY words, which the reference re-encodes on the
+    host, encode on the device program's encoder (its plain version
+    here), fused and per stage; results stay identical to the numpy
+    backend."""
     from repro_torch.core import ewah
 
     n = (ewah.MAX_DIRTY + 2) * ewah.WORD_BITS
@@ -247,10 +249,12 @@ def test_host_reencode_above_max_dirty():
                                                 column_order="given"))
     plans = [compile_plan(idx, p) for p in
              (T.Eq(0, 1), T.Or(T.Eq(0, 2), T.Not(T.Eq(1, 0))))]
-    got = TorchBackend(device="cpu").execute_compressed_many(plans)
     want = NumpyBackend().execute_compressed_many(plans)
-    for s, w in zip(got, want):
-        np.testing.assert_array_equal(s.data, w.data)
+    for fuse in (True, False):
+        got = TorchBackend(device="cpu", fuse=fuse).execute_compressed_many(
+            plans)
+        for s, w in zip(got, want):
+            np.testing.assert_array_equal(s.data, w.data)
 
 
 def test_result_cache_hits_on_repeat():

@@ -5,8 +5,9 @@
   of nested spans, counters, ``reset``, two threads at once, and the
   ``repro.<name>`` host ranges a profiler sees (host-only spans alone);
 * ``TorchBackend(device="cpu")``: the same answers with tracing on as off,
-  the spans of every layer boundary, the copied and stream bytes, and the
-  host re-encode past ``ewah.MAX_DIRTY`` words, one span an answer;
+  the spans of every layer boundary, the copied and stream bytes, and
+  past ``ewah.MAX_DIRTY`` words the encoder's counters, with no host
+  re-encode;
 * ``launch.serve``'s phase report, read from the module.
 """
 
@@ -22,7 +23,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import tracing
 from repro_torch.core import (And, BitmapIndex, Eq, In, IndexSpec, Not,
                               Range, ewah)
-from repro_torch.core.query import TorchBackend, compile_plan
+from repro_torch.core.query import NumpyBackend, TorchBackend, compile_plan
+from torch_encode_cases import overflows
 
 BACKEND_SPANS = ("backend.call", "backend.pad", "backend.h2d",
                  "backend.device")
@@ -198,8 +200,8 @@ def index():
 
 @pytest.fixture(scope="module")
 def wide_index():
-    """The fewest rows past ``MAX_DIRTY`` words a row: the compressed
-    entry's answers re-encode on the host."""
+    """The fewest rows past ``MAX_DIRTY`` words a row, where the
+    reference re-encodes the compressed entry's answers on the host."""
     rng = np.random.default_rng(28)
     n = ewah.WORD_BITS * ewah.MAX_DIRTY + 1
     assert (n + ewah.WORD_BITS - 1) // ewah.WORD_BITS > ewah.MAX_DIRTY
@@ -279,14 +281,22 @@ def test_planning_is_a_span(index):
 
 
 def test_host_reencode_past_max_dirty_one_span_an_answer(wide_index):
+    """Past ``MAX_DIRTY`` words no answer re-encodes on the host: the
+    ``backend.reencode`` span is never entered, ``backend.encoded`` counts
+    every answer the device encoder wrote, ``backend.encoded_overflow``
+    those whose stream splits a run, and the answers are the numpy
+    backend's."""
     plans = [compile_plan(wide_index, p)
              for p in (Eq(0, 1), Not(Eq(0, 2)), In(0, [0, 2]))]
-    want = TorchBackend(device="cpu", cache_size=0).execute_compressed_many(
-        plans)
+    want = NumpyBackend().execute_compressed_many(plans)
     got, seen, snap = run_traced("execute_compressed_many", plans)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.data, w.data)
-    assert snap["spans"]["backend.reencode"]["n"] == len(plans)
+    assert "backend.reencode" not in snap["spans"]
+    assert snap["counters"]["backend.encoded"] == len(plans)
+    n_words = -(-wide_index.n_rows // ewah.WORD_BITS)
+    assert snap["counters"]["backend.encoded_overflow"] == sum(
+        overflows(ewah.decompress(g.data, n_words)) for g in got) > 0
     check_backend_totals(snap, plans, seen, len(plans))
 
 
