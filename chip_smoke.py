@@ -216,6 +216,10 @@ ALU_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores,
 #                              the table's rate for scalar work
 N_PREDICATES = 64
 TABLES = (("dbgen", 1_000_000, 1), ("census", 199_523, 0))
+# [in_list]: one TPC-H Q17-shaped IN-list on the dbgen table's widest
+# (bit-sliced) column: this many scattered keys, drawn with this seed
+IN_LIST_KEYS = 400
+IN_LIST_SEED = 17
 KERNELS = {
     # name: (source, the TPU kernel it replaces)
     "planfuse": ("src/repro_torch/csrc/planfuse.cu",
@@ -467,12 +471,19 @@ def max_err(torch, got, want):
 # ---------------------------------------------------------------------------
 
 
+def padded_words(kv):
+    """A group's padded words as the backend pads them: its plans, its
+    distinct streams (planes) and its capacity."""
+    (_, share, cap, _), idxs = kv
+    return len(idxs) * (max(share) + 1) * cap
+
+
 def largest_group(be, plans):
+    """The group of most padded words: its key, its plans and the number
+    of groups."""
     groups = be._group(plans)
-    (root, cap, n_rows), idxs = max(
-        groups.items(),
-        key=lambda kv: len(kv[1]) * len(plans[kv[1][0]].streams) * kv[0][1])
-    return root, cap, n_rows, idxs, len(groups)
+    key, idxs = max(groups.items(), key=padded_words)
+    return key, idxs, len(groups)
 
 
 def find_fold(node):
@@ -571,20 +582,22 @@ def kernel_phase(torch, T, idx, plans, device, reps):
     per-stage path's inputs."""
     from repro_torch.core import ewah
     from repro_torch.core.query import lower_plan
-    from repro_torch.kernels import ops, planfuse, ref
+    from repro_torch.kernels import ops, ref
 
     be = T.TorchBackend(device=device)
-    root, cap, n_rows, idxs, n_groups = largest_group(be, plans)
-    batch_np, lengths_np = be._pad_group(plans, idxs, cap)
+    (root, share, cap, n_rows), idxs, n_groups = largest_group(be, plans)
+    batch_np, lengths_np = be._pad_group(plans, idxs, cap, share)
     batch, lengths = be._to_device(batch_np, lengths_np)
     B, m, C = batch.shape
     W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
-    tape, depth = lower_plan(root)
-    prog = planfuse.split(tape)
-    log(f"[kernels] dbgen largest batch: B={B} queries x m={m} leaves, "
-        f"capacity {C}, W={W} words, tape {len(tape)} entries, depth {depth} "
-        f"({len(prog.code)} steps, {prog.depth} register slots; {n_groups} "
-        f"batches in the mix)")
+    # the program the backend runs: its tape pushes plane share[i]
+    prog = be._fused_program(root, share)
+    check(prog is not None, "the dbgen mix's largest batch does not fuse")
+    tape, depth = prog.tape, lower_plan(root)[1]
+    log(f"[kernels] dbgen largest batch: B={B} queries x m={m} planes for "
+        f"{len(share)} leaves, capacity {C}, W={W} words, tape {len(tape)} "
+        f"entries, depth {depth} ({len(prog.code)} steps, {prog.depth} "
+        f"register slots; {n_groups} batches in the mix)")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=device)
 
     planes = ops.ewah_decode(batch, lengths, W)
@@ -598,7 +611,7 @@ def kernel_phase(torch, T, idx, plans, device, reps):
     fold = find_fold(root)
     if fold is not None:
         f_ops = fold[1]
-        f_x = torch.stack([planes[c[1]] for c in fold[2]]).reshape(
+        f_x = torch.stack([planes[share[c[1]]] for c in fold[2]]).reshape(
             len(fold[2]), -1)
     else:
         f_ops = tuple("and" if i % 2 else "or" for i in range(min(m, 8) - 1))
@@ -766,6 +779,79 @@ def path_phase(torch, T, name, cols, idx, preds, device):
     return result
 
 
+def in_list_phase(torch, T, cols, idx, device):
+    """One TPC-H Q17-shaped IN-list through both entries of a default
+    (fused) backend: ``IN_LIST_KEYS`` scattered keys of the dbgen table's
+    widest column, each an equality over every slice, so thousands of
+    leaves read a few planes and the tape is past planfuse's gate.  The
+    answers must equal NumpyBackend's and evaluate_mask's, each distinct
+    plane must be padded once, and the per-stage path must launch
+    wordops, recompress and ewah_encode (the compressed entry) and
+    planfuse never."""
+    import numpy as np
+
+    from repro_torch import tracing
+    from repro_torch.core.query import NumpyBackend, compile_plan
+    from repro_torch.kernels import ops, planfuse
+
+    col = max(range(len(cols)), key=lambda c: int(cols[c].max()))
+    card = int(cols[col].max()) + 1
+    rng = np.random.default_rng(IN_LIST_SEED)
+    keys = np.sort(rng.choice(card // 3, size=min(IN_LIST_KEYS, card // 3),
+                              replace=False)) * 3     # no two adjacent
+    pred = T.In(col, [int(k) for k in keys])
+    plan = compile_plan(idx, pred)
+    planes = len({id(s) for s in plan.streams})
+    check(2 * len(plan.streams) - 1 > planfuse.MAX_TAPE_LEN
+          and planes * 10 < len(plan.streams),
+          f"[in_list] {len(plan.streams)} leaves on {planes} planes: not an "
+          f"IN-list past planfuse's gate")
+    want = NumpyBackend().execute_compressed(plan)
+    want_rows = np.flatnonzero(T.evaluate_mask(pred, cols))
+    be = T.TorchBackend(device=device, cache_size=0)
+    prev = tracing.enable()
+    tracing.reset()
+    try:
+        launches = {}
+        for entry, call in (("compressed", be.execute_compressed_many),
+                            ("rows", be.execute_many)):
+            ops.reset_launches()
+            got = call([plan])[0]
+            sync(torch, device)
+            launches[entry] = dict(ops.LAUNCHES)
+            if entry == "compressed":
+                check(np.array_equal(got.data, want.data),
+                      "[in_list] compressed answer differs from NumpyBackend")
+            else:
+                check(np.array_equal(np.sort(idx.row_perm[got[0]]),
+                                     want_rows),
+                      "[in_list] row ids differ from evaluate_mask")
+        counters = tracing.snapshot()["counters"]
+    finally:
+        tracing.enable(prev)
+        tracing.reset()
+    check(counters["backend.planes"] == 2 * planes
+          and counters["backend.leaf_refs"] == 2 * len(plan.streams),
+          f"[in_list] padded {counters['backend.planes']} planes for "
+          f"{counters['backend.leaf_refs']} leaves over two calls, not "
+          f"{2 * planes} for {2 * len(plan.streams)}")
+    need = {"compressed": ("ewah_decode", "wordops", "recompress",
+                           "ewah_encode"),
+            "rows": ("ewah_decode", "wordops")}
+    for entry, names in need.items():
+        check(launches[entry]["planfuse"] == 0,
+              f"[in_list] {entry}: planfuse launched past its gate")
+        for k in names:  # CPU tensors take the plain versions: no launches
+            check(device == "cpu" or launches[entry][k] > 0,
+                  f"[in_list] {entry}: {k} never launched")
+    log(f"[in_list] In(col {col}, {len(keys)} keys): {len(plan.streams)} "
+        f"leaves on {planes} planes, identical to NumpyBackend and "
+        f"evaluate_mask ({len(want_rows)} rows); launches "
+        f"{ {e: {k: v for k, v in n.items() if v} for e, n in launches.items()} }")
+    return {"keys": len(keys), "leaves": len(plan.streams), "planes": planes,
+            "launches": launches}
+
+
 def time_split(torch, T, plans, device):
     """One fused compressed batch of the mix on a fresh backend, split by
     the backend's own spans (``repro_torch.tracing``): grouping and
@@ -793,6 +879,8 @@ def time_split(torch, T, plans, device):
     split["h2d_bytes_per_batch_mean"] = (counters["backend.h2d_bytes"]
                                          / max(1, split["batches"]))
     split["encoded"] = counters["backend.encoded"]
+    split["leaf_refs"] = counters["backend.leaf_refs"]
+    split["planes"] = counters["backend.planes"]
     log("[split] " + ", ".join(f"{k} {v:.6g}" for k, v in split.items()))
     return split
 
@@ -1965,15 +2053,12 @@ def decode_timings(torch, T, plans, reps, flush):
     from repro_torch.kernels import ops, ref
 
     be = T.TorchBackend(device="cuda")
-    groups = sorted(be._group(plans).items(),
-                    key=lambda kv: len(kv[1]) * len(plans[kv[1][0]].streams)
-                    * kv[0][1])
-    _, cap, n_rows, idxs, _ = largest_group(be, plans)
-    (_, m_cap, m_rows), m_idxs = groups[len(groups) // 2]
+    groups = sorted(be._group(plans).items(), key=padded_words)
     out = {}
-    for label, cap, n_rows, idxs in (("largest", cap, n_rows, idxs),
-                                     ("median", m_cap, m_rows, m_idxs)):
-        batch, lengths = be._to_device(*be._pad_group(plans, idxs, cap))
+    for label, ((_, share, cap, n_rows), idxs) in (
+            ("largest", groups[-1]), ("median", groups[len(groups) // 2])):
+        batch, lengths = be._to_device(*be._pad_group(plans, idxs, cap,
+                                                      share))
         W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
         kern = lambda: ops.ewah_decode(batch, lengths, W)  # noqa: E731
         held(torch, f"ewah_decode ({label} batch)", kern,
@@ -2225,11 +2310,9 @@ def median_batch_decode(torch, T, plans, device, reps):
     from repro_torch.kernels import ops, ref
 
     be = T.TorchBackend(device=device)
-    groups = sorted(be._group(plans).items(),
-                    key=lambda kv: len(kv[1]) * len(plans[kv[1][0]].streams)
-                    * kv[0][1])
-    (root, cap, n_rows), idxs = groups[len(groups) // 2]
-    batch_np, lengths_np = be._pad_group(plans, idxs, cap)
+    groups = sorted(be._group(plans).items(), key=padded_words)
+    (root, share, cap, n_rows), idxs = groups[len(groups) // 2]
+    batch_np, lengths_np = be._pad_group(plans, idxs, cap, share)
     batch, lengths = be._to_device(batch_np, lengths_np)
     B, m, C = batch.shape
     W = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
@@ -2244,9 +2327,10 @@ def median_batch_decode(torch, T, plans, device, reps):
              "bound_by": bound_by, "shape": [B, m, C],
              "markers_max": int(markers.max()),
              "markers_mean": float(markers.mean())}
-    be._run(root, batch, lengths, W, compressed=True)
-    prof = device_profile(torch, lambda: be._run(root, batch, lengths, W,
-                                                 compressed=True))
+    args = (be._fused_program(root, share), root, share, batch, lengths, W,
+            True)
+    be._run(*args)
+    prof = device_profile(torch, lambda: be._run(*args))
     check(prof is not None, "torch.profiler recorded no device time")
     decode = [(ms, n) for name, ms, n in prof["by_kernel"]
               if "ewah_decode_kernel" in name]
@@ -3396,6 +3480,11 @@ def run(device="cuda", scale=1.0, reps=20):
         for mode in ("fused", "per_stage"):
             for k, v in res[mode]["launches"].items():
                 totals[k] += v
+    cols, idx = data["dbgen"][:2]
+    report["in_list"] = res = in_list_phase(torch, T, cols, idx, device)
+    for launches in res["launches"].values():
+        for k, v in launches.items():
+            totals[k] += v
     report["containers"] = container_phase(torch, T, device, reps, scale)
     cols, idx, preds, plans, plan_s = data["dbgen"]
     cards = [int(c.max()) + 1 for c in cols]

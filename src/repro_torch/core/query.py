@@ -260,6 +260,11 @@ def count_merges(node) -> int:
 # tests/test_torch_kernels.py asserts the two definitions agree).
 TAPE_PUSH, TAPE_NOT, TAPE_OP = 0, 1, 2
 _TAPE_OP_IDS = {"and": 0, "or": 1, "xor": 2}
+# planfuse programs a TorchBackend keeps, least recently used dropped first
+TAPE_MEMO_SIZE = 256
+# the per-stage path gathers the literals of at most this many bytes of
+# alike clauses at once
+CLAUSE_CHUNK_BYTES = 1 << 30
 
 
 def lower_plan(root) -> tuple:
@@ -1140,19 +1145,25 @@ def _resolve_device(device):
 class TorchBackend:
     """Batched execution of many queries at once on a CUDA device.
 
-    Plans are grouped by (root op tree, capacity bucket, row count):
-    compiled plans carry canonically numbered leaves, so structurally equal
-    plans share one root tuple and hence one device program with a correct
-    leaf mapping.  Each group's leaf streams pad on the host into one
-    (B, m, C) batch, copy to the device, and decode there with the
-    ``ewah_decode`` kernel into (m, B, W) word planes.  With ``fuse=True``
-    (the default) the whole op tree then runs as one ``planfuse`` launch:
-    the plan root lowers to a stack-machine tape (:func:`lower_plan`) that
-    the kernel interprets, writing the root words and their EWAH classes in
-    one pass.  Plans the kernel cannot run (``kernels.planfuse.fits``: tape
+    Plans are grouped by (root op tree, leaf sharing, capacity bucket,
+    row count): compiled plans carry canonically numbered leaves, so
+    structurally equal plans share one root tuple and hence one device
+    program with a correct leaf mapping.  Leaves that reference one stream
+    object (the bit-slices of a column, which an IN-list's equalities and a
+    range's two ends read again and again) become one plane: each group's
+    distinct streams pad on the host into one (B, m, C) batch, copy to the
+    device, and decode there with the ``ewah_decode`` kernel into (m, B, W)
+    word planes, and leaf i reads plane ``share[i]`` (:func:`_sharing`).
+    With ``fuse=True`` (the default) the whole op tree then runs as one
+    ``planfuse`` launch: the plan root lowers to a stack-machine tape
+    (:func:`lower_plan`) that the kernel interprets, writing the root words
+    and their EWAH classes in one pass.  Plans the kernel cannot run (``kernels.planfuse.fits``: tape
     too long or operand stack too deep) take the per-stage path instead:
-    ``wordops_fold`` per tree level, ``slice_fold`` per comparison and the
-    ``recompress`` kernel at the root.  Compressed results encode on the
+    ``wordops_fold`` per fan-in, ``slice_fold`` per comparison and the
+    ``recompress`` kernel at the root; a fan-in's children that are
+    fan-ins of leaves and complemented leaves alike in op and width (an
+    IN-list's equalities) gather their planes and fold together, a chunk
+    of them per ``wordops_fold``.  Compressed results encode on the
     device with the ``ewah_encode`` kernel at any row length, the
     canonical stream ``ewah.compress`` writes, and come back with their
     lengths in one copy a group; nothing re-encodes on the host (the
@@ -1168,7 +1179,9 @@ class TorchBackend:
     def __init__(self, device=None, cache_size: int = 256, fuse: bool = True):
         self.device = _resolve_device(device)
         self.fuse = fuse
-        self._tape_memo: dict = {}
+        # planfuse programs a (root, share); bounded, so a stream of
+        # distinct roots (an IN-list's key sets) cannot grow it for ever
+        self._programs = lru_cache(maxsize=TAPE_MEMO_SIZE)(self._program)
         self.result_cache = ResultCache(cache_size)
 
     def execute(self, plan: Plan):
@@ -1179,13 +1192,11 @@ class TorchBackend:
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
             out: list = [None] * len(plans)
-            for (root, cap, n_rows), idxs in self._group(plans).items():
-                batch, lengths = self._pad_group(plans, idxs, cap)
+            for (root, share, cap, n_rows), idxs in self._group(plans).items():
+                batch, lengths = self._pad_group(plans, idxs, cap, share)
                 n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
                 dev_batch = self._to_device(batch, lengths)
-                with tracing.span("backend.device", device=True):
-                    words = self._run(root, *dev_batch, n_words)
-                    words = words.cpu().numpy().view(np.uint32)
+                words = self._answer(root, share, dev_batch, n_words)
                 for b, i in enumerate(idxs):
                     with tracing.span("backend.unpack"):
                         rows = np.flatnonzero(
@@ -1204,8 +1215,6 @@ class TorchBackend:
         tracing, ``backend.encoded`` counts the answers the kernel wrote
         and ``backend.encoded_overflow`` those among them whose stream
         splits a run at ``MAX_CLEAN`` or ``MAX_DIRTY``."""
-        from ..kernels import ops as kops
-
         with tracing.span("backend.call", device=True):
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
@@ -1224,16 +1233,13 @@ class TorchBackend:
                                    "[cache]")
                     else:
                         todo.append(i)
-            for (root, cap, n_rows), idxs in self._group(plans, todo).items():
-                batch, lengths = self._pad_group(plans, idxs, cap)
+            groups = self._group(plans, todo)
+            for (root, share, cap, n_rows), idxs in groups.items():
+                batch, lengths = self._pad_group(plans, idxs, cap, share)
                 n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
                 dev_batch = self._to_device(batch, lengths)
-                with tracing.span("backend.device", device=True):
-                    dev_streams = self._run(root, *dev_batch, n_words,
-                                            compressed=True)[0]
-                    host = kops.encoded_flat(dev_streams).cpu().numpy()
-                streams, lens, over = kops.split_encoded(
-                    host.view(np.uint32), *dev_streams.shape)
+                streams, lens, over = self._answer(root, share, dev_batch,
+                                                   n_words, compressed=True)
                 if tracing.enabled():
                     tracing.add("backend.encoded", len(idxs))
                     tracing.add("backend.encoded_overflow", int(over.sum()))
@@ -1247,28 +1253,43 @@ class TorchBackend:
             return out
 
     def _group(self, plans, idxs=None) -> dict:
+        """``{(root, share, cap, n_rows): plan indices}``: the plans that
+        share one device program."""
         with tracing.span("backend.pad"):
             groups: dict = {}
             for i in range(len(plans)) if idxs is None else idxs:
                 p = plans[i]
                 cap = PLAN_STATS.capacity_for(max(len(s) for s in p.streams))
                 # key on the full root (leaf indices included), not
-                # signature(): only plans with an identical leaf-to-stream
-                # mapping may share a device program
-                groups.setdefault((p.root, cap, p.n_rows), []).append(i)
+                # signature(), and on the leaf sharing: only plans with an
+                # identical leaf-to-plane mapping may share a device program
+                key = (p.root, _sharing(p), cap, p.n_rows)
+                groups.setdefault(key, []).append(i)
         tracing.add("backend.groups", len(groups))
         return groups
 
     @staticmethod
-    def _pad_group(plans, idxs, cap):
+    def _pad_group(plans, idxs, cap, share):
+        """One group's distinct leaf streams padded to ``cap`` words:
+        (B, m, cap) uint32 and their (B, m) lengths, plane k of a plan
+        being its first leaf with ``share[i] == k``.  Under tracing,
+        ``backend.leaf_refs`` counts the group's leaf references and
+        ``backend.planes`` the planes padded for them."""
         with tracing.span("backend.pad"):
-            m = len(plans[idxs[0]].streams)
+            n_refs = len(plans[idxs[0]].streams)
+            first = _first_refs(share)
+            m = len(first)
             batch = np.zeros((len(idxs), m, cap), dtype=np.uint32)
             lengths = np.zeros((len(idxs), m), dtype=np.int32)
             for b, i in enumerate(idxs):
-                for j, s in enumerate(plans[i].streams):
-                    batch[b, j, : len(s)] = s
-                    lengths[b, j] = len(s)
+                streams = plans[i].streams
+                for k, j in enumerate(first):
+                    s = streams[j]
+                    batch[b, k, : len(s)] = s
+                    lengths[b, k] = len(s)
+        if tracing.enabled():
+            tracing.add("backend.leaf_refs", len(idxs) * n_refs)
+            tracing.add("backend.planes", len(idxs) * m)
         return batch, lengths
 
     def _to_device(self, batch, lengths):
@@ -1366,34 +1387,73 @@ class TorchBackend:
         return torch.from_numpy(
             np.ascontiguousarray(arr).view(np.int32)).to(self.device)
 
-    def _fused_program(self, root):
-        """The planfuse program for ``root`` (its tape and the tape's host
-        split, ``kernels.planfuse.Program``, memoised per root) when the
+    def _fused_program(self, root, share):
+        """The planfuse program for ``root`` whose leaf i reads plane
+        ``share[i]``: its tape and the tape's host split,
+        ``kernels.planfuse.Program``, memoised per (root, share), when the
         kernel can run it, else None: plans past the kernel's tape-length
         or stack-depth limit (``kernels.planfuse.fits``) run per stage."""
         if not self.fuse:
             return None
-        if root in self._tape_memo:
-            return self._tape_memo[root]
+        from ..kernels import planfuse
+
+        # a push a leaf and an op a leaf past the first: too long for the
+        # kernel whatever the tree, so not lowered (nor memoised) at all
+        if 2 * len(share) - 1 > planfuse.MAX_TAPE_LEN:
+            return None
+        return self._programs(root, share)
+
+    @staticmethod
+    def _program(root, share):
         from ..kernels import planfuse
 
         tape, depth = lower_plan(root)
-        self._tape_memo[root] = (planfuse.split(tape)
-                                 if planfuse.fits(tape, depth) else None)
-        return self._tape_memo[root]
+        if not planfuse.fits(tape, depth):
+            return None
+        return planfuse.split(tuple((op, share[a] if op == TAPE_PUSH else a)
+                                    for op, a in tape))
 
-    def _fused_tape(self, root):
+    def _fused_tape(self, root, share):
         """The lowered instruction tape for ``root`` when the planfuse
         kernel can run it, else None."""
-        prog = self._fused_program(root)
+        prog = self._fused_program(root, share)
         return None if prog is None else prog.tape
 
-    def _run(self, root, batch, lengths, n_words: int,
+    def _answer(self, root, share, dev_batch, n_words: int,
+                compressed: bool = False):
+        """One group's device program (:meth:`_run`) and its answer on the
+        host: (B, W) uint32 words, or, when ``compressed``, the encoder's
+        (streams, lengths, overflow) arrays.  The span ``backend.device``
+        runs from the fused program's enqueue to the answer on the host;
+        on the per-stage path the span ``backend.stages`` takes the
+        enqueue (decode, every stage, the root encode) and
+        ``backend.device`` the wait for the answer."""
+        from ..kernels import ops as kops
+
+        def fetch(dev):
+            if not compressed:
+                return dev.cpu().numpy().view(np.uint32)
+            flat = kops.encoded_flat(dev[0]).cpu().numpy().view(np.uint32)
+            return kops.split_encoded(flat, *dev[0].shape)
+
+        prog = self._fused_program(root, share)
+        args = (prog, root, share, *dev_batch, n_words, compressed)
+        if prog is None:
+            with tracing.span("backend.stages", device=True):
+                dev = self._run(*args)
+            with tracing.span("backend.device", device=True):
+                return fetch(dev)
+        with tracing.span("backend.device", device=True):
+            return fetch(self._run(*args))
+
+    def _run(self, prog, root, share, batch, lengths, n_words: int,
              compressed: bool = False):
         """The device program of one group: decode, evaluate, and (when
         ``compressed``) encode.  ``batch`` (B, m, C) and ``lengths``
-        (B, m) lie on the device.  Returns (B, W) words, or, when
-        compressed, ``ops.ewah_encode``'s (streams (B,
+        (B, m) lie on the device, leaf i of ``root`` reading plane
+        ``share[i]``; ``prog`` is :meth:`_fused_program`'s answer for
+        them, the per-stage path where None.  Returns (B, W) words, or,
+        when compressed, ``ops.ewah_encode``'s (streams (B,
         ``ewah_torch.stream_capacity(W)``), lengths (B,), overflow (B,)),
         views of one buffer."""
         import torch
@@ -1401,7 +1461,6 @@ class TorchBackend:
         from . import ewah_torch
         from ..kernels import ops as kops
 
-        prog = self._fused_program(root)
         planes = kops.ewah_decode(batch, lengths, n_words)  # (m, B, W)
         m, B = planes.shape[0], planes.shape[1]
 
@@ -1414,9 +1473,43 @@ class TorchBackend:
             return kops.ewah_encode(words, kflat.reshape(B, n_words),
                                     ewah_torch.stream_capacity(n_words))
 
+        if planes.is_cuda:
+            kops.build_per_stage()
+        lits = None   # once made: the planes, then their complements
+
+        def literal(node):
+            """The row of ``lits`` a leaf or a complemented leaf reads,
+            else None."""
+            neg = node[0] == "not"
+            leaf = node[1] if neg else node
+            if leaf[0] != "leaf":
+                return None
+            k = share[leaf[1]]
+            return k + m if neg else k
+
+        def clauses(op, rows):
+            """Fan-ins of ``op`` over literals, ``rows[j]`` the literals of
+            the j-th, all of one width w: one gather and one wordops_fold
+            per chunk of them -> [(k, B, W), ...] in ``rows`` order."""
+            nonlocal lits
+            if lits is None:
+                lits = torch.cat([planes, torch.bitwise_not(planes)])
+            # (w, clauses) in row-major order: the gather's result takes
+            # the index's layout, and wordops_fold wants it contiguous
+            idx = torch.from_numpy(np.ascontiguousarray(
+                np.asarray(rows, dtype=np.int64).T)).to(planes.device)
+            w = idx.shape[0]
+            step = max(1, CLAUSE_CHUNK_BYTES // max(1, w * B * n_words * 4))
+            out = []
+            for c in range(0, idx.shape[1], step):
+                part = lits[idx[:, c: c + step]]          # (w, k, B, W)
+                folded = kops.wordops_fold(part.view(w, -1), op)
+                out.append(folded.reshape(part.shape[1:]))
+            return out
+
         def ev(node):
             if node[0] == "leaf":
-                return planes[node[1]]
+                return planes[share[node[1]]]
             if node[0] == "cfold":
                 raise ValueError(
                     "container fold reached the batched evaluator; "
@@ -1433,15 +1526,48 @@ class TorchBackend:
             op, children = node
             if op not in ("and", "or"):
                 raise ValueError(f"unknown plan-node kind {op!r}")
-            parts = torch.stack([ev(c) for c in children])  # (p, B, W)
-            folded = kops.wordops_fold(parts.reshape(parts.shape[0], -1), op)
-            return folded.reshape(parts.shape[1:])
+            rows = [literal(c) for c in children]
+            if None not in rows:          # a clause: an equality's slices
+                return clauses(op, [rows])[0][0]
+            # children that are clauses alike (an IN-list's equalities) go
+            # together, the rest one by one; and/or take them in any order
+            parts, alike = [], {}
+            for c in children:
+                r = [literal(g) for g in c[1]] if c[0] in ("and", "or") \
+                    else [None]
+                if None in r:
+                    parts.append(ev(c)[None])
+                else:
+                    alike.setdefault((c[0], len(r)), []).append(r)
+            for (cop, _), group in alike.items():
+                parts += clauses(cop, group)
+            stacked = torch.cat(parts)                    # (p, B, W)
+            folded = kops.wordops_fold(stacked.reshape(len(stacked), -1), op)
+            return folded.reshape(stacked.shape[1:])
 
         words = ev(root)
         if not compressed:
             return words
         return kops.recompress_batch(words,
                                      ewah_torch.stream_capacity(n_words))
+
+
+def _sharing(plan) -> tuple:
+    """The plane of each leaf of ``plan`` when each distinct leaf stream
+    (by identity, as the plan holds it) is decoded once: a tuple numbering
+    the streams in order of first reference (``range(n)`` where no two
+    leaves share one)."""
+    seen: dict = {}
+    return tuple(seen.setdefault(id(s), len(seen)) for s in plan.streams)
+
+
+def _first_refs(share) -> list:
+    """The first leaf of each plane of :func:`_sharing`'s ``share``."""
+    first: list = []
+    for i, k in enumerate(share):
+        if k == len(first):
+            first.append(i)
+    return first
 
 
 def _capacity_bucket(n: int) -> int:

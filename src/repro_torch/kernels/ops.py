@@ -38,6 +38,18 @@ LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
             "ewah_encode": 0}
 
 _OP_NAMES = ("and", "or", "xor")
+#: The libraries the per-stage path may launch: which of them one plan
+#: reaches depends on its data (only a range reaches ``slicefold``).
+PER_STAGE = ("wordops", "slicefold", "recompress", "ewah_encode")
+
+
+@lru_cache(maxsize=None)
+def build_per_stage() -> None:
+    """Build every library of :data:`PER_STAGE` at the path's first use,
+    so a later plan that reaches another of them waits on no nvcc."""
+    from . import build
+
+    build.build_all(PER_STAGE)
 
 
 def reset_launches() -> None:
@@ -95,20 +107,21 @@ def wordops(a, b, op="and"):
 def wordops_fold(stacked, op="and"):
     """Fold ``op`` across axis 0 of (m, n) word vectors -> (n,).
 
-    Tree reduction: each level combines all of its pairs in one flattened
-    ``wordops`` launch, so m planes fold in ceil(log2 m) launches.
+    Tree reduction: each level combines row i with row i + m // 2 for
+    every i in one flattened ``wordops`` launch over the two contiguous
+    halves (no copy), and an odd last row into row 0 with one launch more,
+    so m planes fold in ceil(log2 m) levels.  and, or and xor are
+    associative and commutative: any pairing gives the same words.
     """
     m, n = stacked.shape
     while m > 1:
-        even = (m // 2) * 2
-        a = stacked[0:even:2].reshape(-1)
-        b = stacked[1:even:2].reshape(-1)
-        r, _ = wordops(a, b, op)
-        merged = r.reshape(even // 2, n)
+        h = m // 2
+        r, _ = wordops(stacked[:h].reshape(-1),
+                       stacked[h: 2 * h].reshape(-1), op)
+        r = r.reshape(h, n)
         if m % 2:
-            merged = torch.cat([merged, stacked[-1:]], dim=0)
-        stacked = merged
-        m = stacked.shape[0]
+            r[0] = wordops(r[0], stacked[2 * h], op)[0]
+        stacked, m = r, h
     return stacked[0]
 
 

@@ -280,6 +280,41 @@ def test_backend_on_card_matches_numpy(dev, fuse):
         ops.LAUNCHES
 
 
+@pytest.mark.parametrize("fuse", [True, False])
+def test_q17_in_list_on_card_matches_numpy(dev, fuse):
+    """TPC-H Q17's part selection at a reduced row count: about 400
+    scattered keys of the 19-slice ``l_partkey`` (DBGEN 4-d's columns), so
+    some 7,600 leaves read 19 planes, each decoded once; the tape is past
+    planfuse's gate, so the plan runs per stage on either setting, and
+    every per-stage library is built at its first use."""
+    r = np.random.default_rng(17)
+    n = 200_003
+    cols = [r.integers(0, c, size=n) for c in (7, 11, 2526, 400_000)]
+    idx = T.BitmapIndex.build(cols, T.IndexSpec(row_order="lex",
+                                                encoding="auto"))
+    preds = [T.In(3, [int(k) for k in np.sort(
+        r.choice(400_000 // 3, size=k, replace=False)) * 3])
+        for k in (400, 470)]
+    plans = [compile_plan(idx, p) for p in preds]
+    assert all(len({id(s) for s in p.streams}) == 19 and
+               len(p.streams) >= 19 * 400 for p in plans)
+    want = NumpyBackend().execute_compressed_many(plans)
+    ops.reset_launches()
+    be = TorchBackend(fuse=fuse, cache_size=0)
+    for s, w in zip(be.execute_compressed_many(plans), want):
+        np.testing.assert_array_equal(s.data, w.data)
+    for (rows, _), p in zip(be.execute_many(plans), preds):
+        np.testing.assert_array_equal(np.sort(idx.row_perm[rows]),
+                                      np.flatnonzero(T.evaluate_mask(p, cols)))
+    assert ops.LAUNCHES["planfuse"] == 0, ops.LAUNCHES
+    assert all(ops.LAUNCHES[k] > 0 for k in ("ewah_decode", "wordops",
+                                             "recompress", "ewah_encode")), \
+        ops.LAUNCHES
+    # no key range here, yet slicefold is built: no plan waits on nvcc later
+    from repro_torch.kernels import build
+    assert all(build.library_path(k).exists() for k in ops.PER_STAGE)
+
+
 @pytest.mark.parametrize("name", sorted(ENCODE_CASES))
 def test_encode_kernel_matches_plain_version(dev, name):
     """The ewah_encode kernel against its plain version, bit for bit, on

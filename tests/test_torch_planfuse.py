@@ -151,7 +151,8 @@ def test_gate_and_backends_agree_at_the_depth_limit(depth):
     in interpret mode."""
     root = deep_root(depth, seed=3)
     be = TorchBackend(device="cpu")
-    assert (be._fused_program(root) is None) == (depth > 16)
+    share = tuple(range(n_leaves(root)))
+    assert (be._fused_program(root, share) is None) == (depth > 16)
     if depth > 16:
         with pytest.raises(ValueError, match="exceeds the kernel's limits"):
             planfuse.split(TQ.lower_plan(root)[0])

@@ -157,9 +157,10 @@ def test_fused_tape_used_and_per_stage_when_not_fused():
     root = plans[-1].root
     fused = TorchBackend(device="cpu")
     per_stage = TorchBackend(device="cpu", fuse=False)
-    tape = fused._fused_tape(root)
+    share = TQ._sharing(plans[-1])
+    tape = fused._fused_tape(root, share)
     assert tape is not None and tape == TQ.lower_plan(root)[0]
-    assert per_stage._fused_tape(root) is None
+    assert per_stage._fused_tape(root, share) is None
     want = NumpyBackend().execute_compressed_many(plans)
     got_f = fused.execute_compressed_many(plans)
     got_p = per_stage.execute_compressed_many(plans)
@@ -195,16 +196,22 @@ def _deep_root(depth):
     return node
 
 
+def _identity(root):
+    """The leaf sharing of a root whose leaves read distinct streams."""
+    return tuple(range(sum(1 for op, _ in TQ.lower_plan(root)[0]
+                           if op == TQ.TAPE_PUSH)))
+
+
 def test_hopper_gate_sends_deep_plans_per_stage():
     be = TorchBackend(device="cpu")
     ok = _deep_root(planfuse.MAX_STACK_DEPTH)
     deep = _deep_root(planfuse.MAX_STACK_DEPTH + 1)
     assert TQ.lower_plan(deep)[1] == planfuse.MAX_STACK_DEPTH + 1
-    assert be._fused_tape(ok) is not None
-    assert be._fused_tape(deep) is None
+    assert be._fused_tape(ok, _identity(ok)) is not None
+    assert be._fused_tape(deep, _identity(deep)) is None
     long_tape = ("or", tuple(("leaf", i)
                              for i in range(planfuse.MAX_TAPE_LEN // 2 + 1)))
-    assert be._fused_tape(long_tape) is None
+    assert be._fused_tape(long_tape, _identity(long_tape)) is None
 
 
 def test_gated_plans_run_per_stage_and_agree(monkeypatch):
@@ -214,8 +221,9 @@ def test_gated_plans_run_per_stage_and_agree(monkeypatch):
     monkeypatch.setattr(planfuse, "MAX_STACK_DEPTH", 1)
     be = TorchBackend(device="cpu")
     got = be.execute_compressed_many(plans)
-    assert be._fused_tape(plans[4].root) is None   # depth 2: per stage
-    assert be._fused_tape(plans[0].root) is not None
+    assert be._fused_tape(plans[4].root,
+                          TQ._sharing(plans[4])) is None   # depth 2: per stage
+    assert be._fused_tape(plans[0].root, TQ._sharing(plans[0])) is not None
     for s, w in zip(got, want):
         np.testing.assert_array_equal(s.data, w.data)
 

@@ -5,8 +5,9 @@
   of nested spans, counters, ``reset``, two threads at once, and the
   ``repro.<name>`` host ranges a profiler sees (host-only spans alone);
 * ``TorchBackend(device="cpu")``: the same answers with tracing on as off,
-  the spans of every layer boundary, the copied and stream bytes, and
-  past ``ewah.MAX_DIRTY`` words the encoder's counters, with no host
+  the spans of every layer boundary, the copied and stream bytes, the
+  leaf references and the distinct planes decoded, the per-stage span,
+  and past ``ewah.MAX_DIRTY`` words the encoder's counters, with no host
   re-encode;
 * ``launch.serve``'s phase report, read from the module.
 """
@@ -210,6 +211,27 @@ def wide_index():
                                        encoding="equality"))
 
 
+@pytest.fixture(scope="module")
+def sliced_index():
+    """Bit-sliced columns: a range reads some slices from both of its
+    ends, and an IN-list reads every slice once a key."""
+    rng = np.random.default_rng(29)
+    n = 3_001
+    cols = [rng.integers(0, 600, n), rng.integers(0, 60, n)]
+    return BitmapIndex.build(cols, IndexSpec(row_order="lex",
+                                             encoding="bitsliced"))
+
+
+def sliced_predicates():
+    return [Range(0, 37, 410), In(0, [3, 90, 91, 92, 250, 511]),
+            And(Range(1, 5, 44), Eq(0, 77)), Not(Range(0, 100, 599))]
+
+
+def distinct_streams(plan):
+    """The plan's leaf streams, each stream object once."""
+    return list({id(s): s for s in plan.streams}.values())
+
+
 def spy_copies(be):
     """Record (bytes, stream words) of every group ``_to_device`` copies."""
     seen = []
@@ -240,7 +262,7 @@ def check_backend_totals(snap, plans, seen, n_groups):
     assert c["backend.groups"] == n_groups == len(seen)
     assert c["backend.h2d_bytes"] == sum(b for b, _ in seen)
     assert c["backend.stream_bytes"] == 4 * sum(w for _, w in seen) == \
-        4 * sum(len(st) for p in plans for st in p.streams)
+        4 * sum(len(st) for p in plans for st in distinct_streams(p))
     children = sum(v["s"] for k, v in s.items()
                    if k.startswith("backend.") and k != "backend.call")
     assert s["backend.call"]["self_s"] == pytest.approx(
@@ -300,6 +322,53 @@ def test_host_reencode_past_max_dirty_one_span_an_answer(wide_index):
     check_backend_totals(snap, plans, seen, len(plans))
 
 
+@pytest.mark.parametrize("entry", ["execute_compressed_many",
+                                   "execute_many"])
+def test_shared_leaves_are_padded_and_counted_once(sliced_index, entry):
+    """``backend.leaf_refs`` counts every leaf of the plans sent to the
+    device, ``backend.planes`` and the stream bytes each distinct stream
+    of a plan once; the answers are the numpy backend's."""
+    plans = [compile_plan(sliced_index, p) for p in sliced_predicates()]
+    assert any(len(distinct_streams(p)) < len(p.streams) for p in plans)
+    want = NumpyBackend().execute_compressed_many(plans)
+    got, seen, snap = run_traced(entry, plans)
+    for g, w in zip(got, want):
+        if entry == "execute_many":
+            np.testing.assert_array_equal(g[0], w.to_rows())
+        else:
+            np.testing.assert_array_equal(g.data, w.data)
+    c = snap["counters"]
+    assert c["backend.leaf_refs"] == sum(len(p.streams) for p in plans)
+    assert c["backend.planes"] == sum(len(distinct_streams(p))
+                                      for p in plans) < c["backend.leaf_refs"]
+    check_backend_totals(snap, plans, seen, len(plans))
+
+
+def per_stage_traced(entry, plans):
+    be = TorchBackend(device="cpu", cache_size=0, fuse=False)
+    seen = spy_copies(be)
+    tracing.enable()
+    out = getattr(be, entry)(plans)
+    tracing.enable(False)
+    return out, seen, tracing.snapshot()
+
+
+@pytest.mark.parametrize("entry", ["execute_compressed_many",
+                                   "execute_many"])
+def test_per_stage_groups_enter_the_stages_span(sliced_index, entry):
+    """Each group that runs per stage enters ``backend.stages`` once, beside
+    (not inside) ``backend.device``, so the call's self time and its
+    children still add up; fused groups never enter it."""
+    plans = [compile_plan(sliced_index, p) for p in sliced_predicates()]
+    _, _, fused = run_traced(entry, plans)
+    assert "backend.stages" not in fused["spans"]
+    tracing.reset()
+    got, seen, snap = per_stage_traced(entry, plans)
+    assert snap["spans"]["backend.stages"]["n"] == len(plans)
+    assert snap["spans"]["backend.device"]["n"] == len(plans)
+    check_backend_totals(snap, plans, seen, len(plans))
+
+
 def test_device_spans_stay_off_the_profiler_timeline(index):
     plans = [compile_plan(index, p) for p in predicates()]
     be = TorchBackend(device="cpu", cache_size=0)
@@ -308,6 +377,19 @@ def test_device_spans_stay_off_the_profiler_timeline(index):
     names = _host_event_names(prof)
     assert {"repro.backend.pad", "repro.backend.unpack"} <= names
     assert not {"repro." + n for n in DEVICE_SPANS} & names
+
+
+def test_stages_span_stays_off_the_profiler_timeline(sliced_index):
+    """``backend.stages`` encloses device work: no ``repro.`` range."""
+    plans = [compile_plan(sliced_index, p) for p in sliced_predicates()]
+    be = TorchBackend(device="cpu", cache_size=0, fuse=False)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        be.execute_compressed_many(plans)
+    names = _host_event_names(prof)
+    assert "repro.backend.pad" in names
+    assert not {"repro." + n for n in (*DEVICE_SPANS, "backend.stages")} \
+        & names
+    assert tracing.snapshot()["spans"]["backend.stages"]["n"] == len(plans)
 
 
 # -- the serve launcher's phases ---------------------------------------------
