@@ -7,10 +7,10 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX or of the
 reference package, and:
 
-1. builds the twelve CUDA libraries from ``src/repro_torch/csrc`` with nvcc
+1. builds the thirteen CUDA libraries from ``src/repro_torch/csrc`` with nvcc
    for sm_90a, prints the card's name and power limit, and prints ptxas's
    registers, stack frame, spills and shared memory for every
-   instantiation of every kernel of the twelve (``PTXAS_CHECKED``),
+   instantiation of every kernel of the thirteen (``PTXAS_CHECKED``),
    failing if any has a stack frame or a spill beyond ``PTXAS_ALLOWED``,
    which names one kernel (``ewah_decode_kernel_markers``) with its bytes
    as ceilings; then runs the port's static lint, ``python -m
@@ -30,7 +30,12 @@ reference package, and:
    holds and times ``ewah_decode`` on a synthetic worst-case batch (55
    streams in which every word is a marker) with the same bound; and
    holds and times ``ewah_encode`` on the largest batch's answers and on
-   one answer of the DBGEN cell's 436,812 words;
+   one answer of the DBGEN cell's 436,812 words; and holds ``rowids``
+   (``ops.rowids``, its two phases) against its plain version and the
+   host's ``unpack_bits`` + ``flatnonzero`` on seven answers of the DBGEN
+   cell's 436,812 words at the TPC-H stream's seven densities
+   (``ROWID_DENSITIES``), padding bits set, and times each answer alone
+   beside its bound;
 4. path phase: answers both mixes through ``BitmapIndex.query_many`` and
    ``query_compressed`` on ``TorchBackend()`` and ``TorchBackend(fuse=False)``,
    requires EWAH streams identical to the host ``NumpyBackend`` and row ids
@@ -251,11 +256,19 @@ KERNELS = {
     # scatters up to MAX_DIRTY words a row, and on the host past that
     "ewah_encode": ("src/repro_torch/csrc/ewah_encode.cu",
                     "src/repro/core/ewah_jax.py:50"),
+    # no TPU kernel: the reference unpacks row ids on the host
+    "rowids": ("src/repro_torch/csrc/rowids.cu",
+               "src/repro/core/query.py:1181 (ewah.unpack_bits + "
+               "np.flatnonzero on the host)"),
 }
 CONTAINER_ROWS = 1_000_000           # 16 Roaring chunks of 65,536 rows
 CONTAINER_DENSITIES = (0.002, 0.05, 0.3)
 LINEITEM_SF10_ROWS = 59_986_052      # TPC-H lineitem at scale factor 10
 DBGEN_CELL_WORDS = 436_812           # a bitmap of DBGEN's 13,977,980 rows
+DBGEN_CELL_ROWS = 13_977_980
+# the share of rows each predicate of the tpch-stream mix answers on the
+# DBGEN cell: Q1, Q3, Q7, Q12, Q6, Q15, Q14
+ROWID_DENSITIES = (0.964, 0.536, 0.289, 0.041, 0.039, 0.036, 0.012)
 # the lifecycle phase's sealed batches; the rest of the table stays open
 LIFECYCLE_SEALS = (262_144, 262_144, 262_144, 200_000)
 SF1_ROWS = 6_001_215                 # TPC-H SF 1 lineitem
@@ -514,6 +527,7 @@ PTXAS_CHECKED = {
     # the decode's two phases, the encoder's two
     "ewah_decode": (r"ewah_decode_kernel_(markers|expand)", 2),
     "ewah_encode": (r"ewah_encode_kernel_(tiles|write)", 2),
+    "rowids": (r"rowids_kernel_(count|write)", 2),
     "bitpack": (r"bitpack_kernelILi(\d+)E", 2),  # 16 or 1 columns a thread
     # the elementwise kernels: 16-byte (V = 4) and 4-byte (V = 1) accesses
     "gray": (r"gray_kernelILi(\d)E", 2),
@@ -536,7 +550,7 @@ PTXAS_ALLOWED = {"ewah_decode markers": {"stack_frame": 40,
 
 
 def kernel_resources(build, planfuse):
-    """ptxas's report for every kernel of the twelve libraries, each
+    """ptxas's report for every kernel of the thirteen libraries, each
     instantiation: planfuse_kernel (depth class D, V words a thread; its
     shared memory is all static: code, push list and ring),
     moe_route_kernel (NC mask words, 16-byte reads), the histogram kernels
@@ -670,7 +684,90 @@ def kernel_phase(torch, T, idx, plans, device, reps):
     row = words[0].repeat(-(-DBGEN_CELL_WORDS // W))[:DBGEN_CELL_WORDS]
     out["ewah_encode"]["dbgen_cell_answer"] = encode_timed(
         torch, "one DBGEN-cell answer", row[None].contiguous(), reps, flush)
+    out["rowids"] = rowids_timed(torch, device, reps, flush)
     return out
+
+
+def rowid_answers(torch, device, seed=30):
+    """(7, 436,812) int32 answer words of the DBGEN cell, answer b's bits
+    set at random with ``ROWID_DENSITIES[b]``, the padding bits past the
+    last row included (a "not" in a plan sets them)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shifts = torch.arange(32, dtype=torch.int64, device=device)
+    out = torch.empty(len(ROWID_DENSITIES), DBGEN_CELL_WORDS,
+                      dtype=torch.int32, device=device)
+    for b, d in enumerate(ROWID_DENSITIES):
+        bits = torch.rand(DBGEN_CELL_WORDS, 32, generator=g,
+                          device=device) < d
+        w = (bits.to(torch.int64) << shifts).sum(1)
+        out[b] = (w - ((w >> 31) << 32)).to(torch.int32)   # the bit-view
+    return out
+
+
+def rowids_timed(torch, device, reps, flush):
+    """``rowids`` on the DBGEN cell's shape: the seven answers in one
+    call, held against the plain version (offsets, totals, ids) and, for
+    each answer, against the host's ``np.flatnonzero(unpack_bits(...))``;
+    then each answer alone, as the cell's one-query groups run it, its
+    two kernels timed beside the bound (the words read twice, 8 B an id
+    written) and beside the plain version on the card and the host's
+    unpack."""
+    import numpy as np
+
+    from repro_torch.core import ewah
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rowids as kr
+
+    words = rowid_answers(torch, device)
+    B, W = words.shape
+    n = DBGEN_CELL_ROWS
+    host_words = words.cpu().numpy().view(np.uint32)
+    ids, totals = ops.rowids(words, n)
+    offsets, _ = ops.rowid_counts(words, n)
+    want_off, want_tot = ref.rowid_counts(words, n, kr.TILE)
+    mism = (int((ids != ref.rowid_write(words, n)).sum())
+            + int((offsets != want_off).sum())
+            + int((totals != want_tot.cpu()).sum()))
+    ends = np.cumsum(totals.numpy())
+    host = ids.cpu().numpy()
+    per = []
+    for b in range(B):
+        t0 = time.perf_counter()
+        want = np.flatnonzero(ewah.unpack_bits(host_words[b], n))
+        host_ms = (time.perf_counter() - t0) * 1e3
+        got = host[ends[b] - int(totals[b]): ends[b]]
+        mism += int(not np.array_equal(got, want))
+        one = words[b: b + 1]
+        off1, tot1 = ops.rowid_counts(one, n)
+        n_ids = int(tot1.cpu()[0])
+        count_ms = event_ms(torch, lambda: ops.rowid_counts(one, n), reps,
+                            flush)
+        write_ms = event_ms(torch, lambda: ops.rowid_write(one, n, off1,
+                                                           n_ids),
+                            reps, flush)
+        plain_ms = event_ms(torch, lambda: (ref.rowid_counts(one, n, kr.TILE),
+                                            ref.rowid_write(one, n)),
+                            max(1, reps // 4), flush, rounds=3)
+        nbytes = 8 * W + 8 * n_ids
+        bound_ms, bound_by = bound(nbytes, 0)
+        per.append({"density": ROWID_DENSITIES[b], "ids": n_ids,
+                    "ms": count_ms + write_ms, "count_ms": count_ms,
+                    "write_ms": write_ms, "plain_ms": plain_ms,
+                    "host_unpack_ms": host_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes})
+        log(f"[kernels] rowids, one answer at {ROWID_DENSITIES[b]:.1%} "
+            f"({n_ids} ids of {W} words): {count_ms + write_ms:.5f} ms "
+            f"(count {count_ms:.5f}, write {write_ms:.5f}; bound "
+            f"{bound_ms:.5f} ms, {bound_ms / max(count_ms + write_ms, 1e-9):.1%}"
+            f" of it), plain {plain_ms:.4f} ms, host unpack {host_ms:.1f} ms")
+    check(mism == 0, "rowids disagrees with its plain version or the "
+          "host's unpack")
+    log(f"[kernels] rowids on {B} x {W} words ({int(totals.sum())} ids): "
+        f"mismatches 0 (tolerance 0: identity) against the plain version "
+        f"and np.flatnonzero(unpack_bits)")
+    largest = max(per, key=lambda e: e["ids"])
+    return {**largest, "max_abs_err": 0, "mismatches": mism,
+            "shape": [1, W], "answers": per}
 
 
 def encode_timed(torch, label, words, reps, flush):
@@ -748,9 +845,10 @@ def path_phase(torch, T, name, cols, idx, preds, device):
                 bad += 1
                 log(f"[path] {name} {mode}: MISMATCH on {p!r}")
         check(bad == 0, f"{name} {mode}: {bad} predicates disagree")
-        need = (["ewah_decode", "planfuse", "ewah_encode"] if fuse else
+        need = (["ewah_decode", "planfuse", "ewah_encode", "rowids"]
+                if fuse else
                 ["ewah_decode", "wordops", "slicefold", "recompress",
-                 "ewah_encode"])
+                 "ewah_encode", "rowids"])
         for k in need:  # CPU tensors take the plain versions: no launches
             check(device == "cpu" or launches[k] > 0,
                   f"{name} {mode}: {k} never launched")
@@ -837,7 +935,7 @@ def in_list_phase(torch, T, cols, idx, device):
           f"{2 * planes} for {2 * len(plan.streams)}")
     need = {"compressed": ("ewah_decode", "wordops", "recompress",
                            "ewah_encode"),
-            "rows": ("ewah_decode", "wordops")}
+            "rows": ("ewah_decode", "wordops", "rowids")}
     for entry, names in need.items():
         check(launches[entry]["planfuse"] == 0,
               f"[in_list] {entry}: planfuse launched past its gate")

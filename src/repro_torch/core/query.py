@@ -1167,7 +1167,10 @@ class TorchBackend:
     device with the ``ewah_encode`` kernel at any row length, the
     canonical stream ``ewah.compress`` writes, and come back with their
     lengths in one copy a group; nothing re-encodes on the host (the
-    reference does past ``MAX_DIRTY`` words).  Roaring
+    reference does past ``MAX_DIRTY`` words).  Row-id answers
+    (:meth:`execute_many`) are cut from the answer words on the device by
+    the two ``rowids`` kernels and come back as ids, one copy a group;
+    the host unpacks no word.  Roaring
     columns' ``("cfold", ...)`` nodes of all the call's plans fold first
     (:func:`lower_containers_many`), every fold of the call in one
     ``containerops`` launch (:meth:`_container_fold_many`).
@@ -1188,6 +1191,14 @@ class TorchBackend:
         return self.execute_many([plan])[0]
 
     def execute_many(self, plans):
+        """Batched execution with row-id answers: each group's device
+        program, then the ``rowids`` kernels turn its answer words into
+        row ids on the device, and the ids of the whole group come back
+        in one copy; answer b is a view of it.  Under tracing,
+        ``backend.rowid_answers`` counts the answers and
+        ``backend.rowid_bytes`` the bytes of ids copied back."""
+        from ..kernels import ops as kops
+
         with tracing.span("backend.call", device=True):
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
@@ -1196,12 +1207,19 @@ class TorchBackend:
                 batch, lengths = self._pad_group(plans, idxs, cap, share)
                 n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
                 dev_batch = self._to_device(batch, lengths)
-                words = self._answer(root, share, dev_batch, n_words)
-                for b, i in enumerate(idxs):
-                    with tracing.span("backend.unpack"):
-                        rows = np.flatnonzero(
-                            ewah.unpack_bits(words[b], n_rows))
-                    out[i] = (rows, plans[i].leaf_words())
+                words, offsets, totals = self._answer(
+                    root, share, dev_batch, n_words, n_rows=n_rows)
+                with tracing.span("backend.unpack", device=True):
+                    ids = kops.rowid_write(words, n_rows, offsets,
+                                           int(totals.sum()))
+                    host = ids.cpu().numpy()
+                    ends = np.cumsum(totals)
+                    for b, i in enumerate(idxs):
+                        out[i] = (host[ends[b] - totals[b]: ends[b]],
+                                  plans[i].leaf_words())
+                if tracing.enabled():
+                    tracing.add("backend.rowid_answers", len(idxs))
+                    tracing.add("backend.rowid_bytes", host.nbytes)
             return out
 
     def execute_compressed(self, plan: Plan) -> EwahStream:
@@ -1239,7 +1257,7 @@ class TorchBackend:
                 n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
                 dev_batch = self._to_device(batch, lengths)
                 streams, lens, over = self._answer(root, share, dev_batch,
-                                                   n_words, compressed=True)
+                                                   n_words)
                 if tracing.enabled():
                     tracing.add("backend.encoded", len(idxs))
                     tracing.add("backend.encoded_overflow", int(over.sum()))
@@ -1419,20 +1437,24 @@ class TorchBackend:
         prog = self._fused_program(root, share)
         return None if prog is None else prog.tape
 
-    def _answer(self, root, share, dev_batch, n_words: int,
-                compressed: bool = False):
-        """One group's device program (:meth:`_run`) and its answer on the
-        host: (B, W) uint32 words, or, when ``compressed``, the encoder's
-        (streams, lengths, overflow) arrays.  The span ``backend.device``
-        runs from the fused program's enqueue to the answer on the host;
-        on the per-stage path the span ``backend.stages`` takes the
-        enqueue (decode, every stage, the root encode) and
-        ``backend.device`` the wait for the answer."""
+    def _answer(self, root, share, dev_batch, n_words: int, n_rows=None):
+        """One group's device program (:meth:`_run`) and what the host
+        needs of it: for the row-id entry (``n_rows`` given) the (B, W)
+        answer words, left on the device, the ``rowids`` count kernel's
+        tile offsets beside them and each answer's id count, (B,) int64 on
+        the host; else the encoder's (streams, lengths, overflow) arrays
+        on the host.  The span ``backend.device`` runs from the fused
+        program's enqueue to those arrays on the host; on the per-stage
+        path the span ``backend.stages`` takes the enqueue (decode, every
+        stage, the root encode) and ``backend.device`` the rest."""
         from ..kernels import ops as kops
+
+        compressed = n_rows is None
 
         def fetch(dev):
             if not compressed:
-                return dev.cpu().numpy().view(np.uint32)
+                offsets, totals = kops.rowid_counts(dev, n_rows)
+                return dev, offsets, totals.cpu().numpy()
             flat = kops.encoded_flat(dev[0]).cpu().numpy().view(np.uint32)
             return kops.split_encoded(flat, *dev[0].shape)
 

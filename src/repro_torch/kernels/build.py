@@ -40,7 +40,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("planfuse", "recompress", "wordops", "slicefold", "ewah_decode",
            "containers", "bitpack", "gray", "histmm", "moe_route",
-           "ewah_and_popcount", "ewah_encode")
+           "ewah_and_popcount", "ewah_encode", "rowids")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _LOCK = threading.Lock()

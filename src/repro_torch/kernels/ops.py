@@ -28,6 +28,7 @@ from . import moe_route as _moe_route
 from . import planfuse as _planfuse
 from . import recompress as _recompress
 from . import ref
+from . import rowids as _rowids
 from . import slicefold as _slicefold
 from . import wordops as _wordops
 
@@ -35,7 +36,7 @@ from . import wordops as _wordops
 LAUNCHES = {"planfuse": 0, "recompress": 0, "wordops": 0, "slicefold": 0,
             "ewah_decode": 0, "containerops": 0, "member": 0, "bitpack": 0,
             "gray": 0, "histogram": 0, "moe_route": 0, "ewah_and_popcount": 0,
-            "ewah_encode": 0}
+            "ewah_encode": 0, "rowids": 0}
 
 _OP_NAMES = ("and", "or", "xor")
 #: The libraries the per-stage path may launch: which of them one plan
@@ -267,6 +268,77 @@ def split_encoded(flat, B: int, capacity: int):
     return (flat[: B * capacity].reshape(B, capacity),
             flat[B * capacity: B * (capacity + 1)],
             flat[B * (capacity + 1):])
+
+
+def rowids(words, n_rows: int):
+    """(B, W) int32 answer words -> (ids, totals): every answer's set bits
+    below ``n_rows`` as int64 row ids, ascending, the answers back to back
+    in one (N,) tensor on the words' device (answer b's ids at
+    ``totals[:b].sum()``), and each answer's count (B,) int64 on the host.
+    What ``np.flatnonzero(ewah.unpack_bits(words[b], n_rows))`` gives for
+    each b.  :func:`rowid_counts`, the totals' copy, then
+    :func:`rowid_write`."""
+    offsets, totals = rowid_counts(words, n_rows)
+    totals = totals.cpu()
+    return rowid_write(words, n_rows, offsets, int(totals.sum())), totals
+
+
+def rowid_counts(words, n_rows: int):
+    """The first phase of :func:`rowids`: (B, W) int32 words ->
+    (offsets (B, T) int64, the exclusive offset of each tile of
+    ``kernels/rowids.TILE`` words in the flat output; totals (B,) int64,
+    each answer's ids), on the words' device; one count a call."""
+    B, W = _check_rowid_args(words, n_rows)
+    if _on_cpu(words):
+        return ref.rowid_counts(words, n_rows, _rowids.TILE)
+    _check_cuda("rowids", words)
+    if B > 65535:
+        raise ValueError(f"rowids: {B} answers, at most 65,535 a call")
+    T = _rowids.n_tiles(W)
+    # the offsets, the totals, then the last-block counter
+    buf = torch.empty(B * T + B + 1, dtype=torch.int64, device=words.device)
+    offsets, totals = buf[: B * T].view(B, T), buf[B * T: B * T + B]
+    if B and W:
+        _rowids.launch_count(words, n_rows, offsets, totals, buf[B * T + B:])
+        LAUNCHES["rowids"] += 1
+    else:
+        buf.zero_()
+    return offsets, totals
+
+
+def rowid_write(words, n_rows: int, offsets, n_ids: int):
+    """The second phase of :func:`rowids`: the words, :func:`rowid_counts`'
+    offsets and the sum of its totals -> (n_ids,) int64 row ids on the
+    words' device; one count a call."""
+    B, W = _check_rowid_args(words, n_rows)
+    if tuple(offsets.shape) != (B, _rowids.n_tiles(W)):
+        raise ValueError(f"rowid_write: offsets of shape "
+                         f"{tuple(offsets.shape)} for words of shape "
+                         f"{(B, W)}")
+    if _on_cpu(words, offsets):
+        ids = ref.rowid_write(words, n_rows)
+        if len(ids) != n_ids:
+            raise ValueError(f"rowid_write: {len(ids)} ids, not {n_ids}")
+        return ids
+    _check_cuda("rowids", words)
+    _check_cuda("rowids", offsets, dtype=torch.int64)
+    ids = torch.empty(n_ids, dtype=torch.int64, device=words.device)
+    if n_ids:
+        _rowids.launch_write(words, n_rows, offsets, ids)
+        LAUNCHES["rowids"] += 1
+    return ids
+
+
+def _check_rowid_args(words, n_rows):
+    if words.dim() != 2:
+        raise ValueError(f"rowids: (B, W) words expected, got shape "
+                         f"{tuple(words.shape)}")
+    _check_dtype("rowids", words)
+    B, W = words.shape
+    if not (W < 2**26 and 0 <= n_rows <= 32 * W):
+        raise ValueError(f"rowids: {n_rows} rows in {W} words (at most "
+                         f"32 a word, under 2**26 words)")
+    return B, W
 
 
 def ewah_decode(batch, lengths, n_words: int):

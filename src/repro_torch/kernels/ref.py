@@ -584,3 +584,33 @@ def ewah_pair_tiles(sa, la, na, sb, lb, nb, table_a, table_b, n_words: int):
         count[rows], iters[rows] = ewah_and_popcount(
             sa[rows], la[rows], na[rows], sb[rows], lb[rows], nb[rows])
     return count, iters
+
+
+def rowid_bits(words, n_rows: int):
+    """(B, W) int32 words -> (B, 32 W) bool: bit j of word w at 32w + j,
+    the bits at or past ``n_rows`` cleared."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    B, W = words.shape
+    bits = ((words[..., None] >> shifts) & 1).bool().reshape(B, 32 * W)
+    bits[:, n_rows:] = False
+    return bits
+
+
+def rowid_counts(words, n_rows: int, tile: int):
+    """The count kernel: (B, W) words -> (offsets (B, T) int64, each tile
+    of ``tile`` words' exclusive offset in the flat output; totals (B,)
+    int64), T = ceil(W / tile)."""
+    B, W = words.shape
+    T = -(-W // tile)
+    per_word = rowid_bits(words, n_rows).reshape(B, W, 32).sum(2)
+    per_tile = torch.nn.functional.pad(per_word, (0, T * tile - W)).reshape(
+        B, T, tile).sum(2)
+    flat = per_tile.reshape(-1)
+    offsets = (torch.cumsum(flat, 0) - flat).reshape(B, T)
+    return offsets, per_tile.sum(1)
+
+
+def rowid_write(words, n_rows: int):
+    """The write kernel: (B, W) words -> every answer's row ids, ascending,
+    the answers back to back, (N,) int64."""
+    return torch.nonzero(rowid_bits(words, n_rows))[:, 1].contiguous()

@@ -379,6 +379,62 @@ def test_backend_past_max_dirty_on_card_matches_numpy(dev, fuse):
     assert ops.LAUNCHES["ewah_encode"] == len(plans), ops.LAUNCHES
 
 
+@pytest.mark.parametrize("n_rows", [1, 31, 32, 33, 1_025, 40_003,
+                                    13_977_980])
+def test_rowids_kernels_match_plain_version(dev, n_rows):
+    """The two rowids kernels against their plain version on three answers
+    (empty, all ones with the padding bits set, random): tile offsets,
+    totals and ids identical, two launches a call."""
+    from repro_torch.kernels import rowids as kr
+
+    W = -(-n_rows // 32)
+    r = np.random.default_rng(n_rows)
+    words = r.integers(0, 2**32, size=(3, W), dtype=np.uint32)
+    words[0] = 0
+    words[1] = 0xFFFFFFFF
+    x = torch.from_numpy(words.view(np.int32))
+    want_off, want_tot = ops.rowid_counts(x, n_rows)
+    want_ids = ops.rowid_write(x, n_rows, want_off, int(want_tot.sum()))
+    xd = x.to(dev)
+    ops.reset_launches()
+    off, tot = ops.rowid_counts(xd, n_rows)
+    ids = ops.rowid_write(xd, n_rows, off, int(tot.sum()))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rowids"] == 2
+    assert tuple(off.shape) == (3, kr.n_tiles(W))
+    assert torch.equal(off.cpu(), want_off) and torch.equal(tot.cpu(),
+                                                            want_tot)
+    assert torch.equal(ids.cpu(), want_ids)
+    assert int(want_tot[1]) == n_rows
+    got, totals = ops.rowids(xd, n_rows)
+    assert torch.equal(got.cpu(), want_ids) and torch.equal(totals, want_tot)
+
+
+@pytest.mark.parametrize("fuse", [True, False])
+def test_backend_rows_entry_on_card_matches_numpy(dev, fuse):
+    """The row-id entry on the card: every answer identical to the numpy
+    backend's, two rowids launches a group, ids in one copy a group."""
+    r = np.random.default_rng(30)
+    n = 200_003
+    cols = [r.integers(0, 4, size=n), r.integers(0, 5, size=n)]
+    idx = T.BitmapIndex.build(cols, T.IndexSpec(row_order="lex"))
+    preds = [T.Eq(0, 1), T.Not(T.Eq(1, 2)), T.And(T.Eq(0, 0), T.Eq(0, 1)),
+             T.Or(*(T.Eq(1, v) for v in range(5))),
+             T.And(T.Not(T.Eq(0, 3)), T.Or(T.Eq(1, 0), T.Eq(1, 4)))]
+    plans = [compile_plan(idx, p) for p in preds]
+    be = TorchBackend(fuse=fuse, cache_size=0)
+    groups = list(be._group(plans).values())
+    ops.reset_launches()
+    got = be.execute_many(plans)
+    for (rows, _), p in zip(got, plans):
+        want = NumpyBackend().execute(p)[0]
+        assert rows.dtype == np.int64
+        np.testing.assert_array_equal(rows, want)
+    # a group with no id at all needs no write launch
+    empty = sum(all(len(got[i][0]) == 0 for i in g) for g in groups)
+    assert ops.LAUNCHES["rowids"] == 2 * len(groups) - empty, ops.LAUNCHES
+
+
 @pytest.mark.parametrize("P", [3, 16])  # 16-byte path on any P x 2048 words
 def test_container_kernels_match_plain_versions(dev, P):
     from repro_torch.core import containers as C
