@@ -2425,10 +2425,10 @@ def median_batch_decode(torch, T, plans, device, reps):
              "bound_by": bound_by, "shape": [B, m, C],
              "markers_max": int(markers.max()),
              "markers_mean": float(markers.mean())}
-    args = (be._fused_program(root, share), root, share, batch, lengths, W,
-            True)
-    be._run(*args)
-    prof = device_profile(torch, lambda: be._run(*args))
+    args = (be._fused_program(root, share), root, share, batch, lengths, W)
+    program = lambda: be._encode(*be._evaluate(*args))  # noqa: E731
+    program()
+    prof = device_profile(torch, program)
     check(prof is not None, "torch.profiler recorded no device time")
     decode = [(ms, n) for name, ms, n in prof["by_kernel"]
               if "ewah_decode_kernel" in name]

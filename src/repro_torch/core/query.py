@@ -21,11 +21,11 @@ Backends (pluggable via :func:`register_backend`):
   ``words_scanned`` counts compressed words the cursors actually visited
   (the paper's machine-independent cost).
 * ``torch`` — batched device execution on a CUDA card: leaf streams are
-  padded to a capacity bucket, decoded by the ``ewah_decode`` kernel, and
-  the whole plan runs in one ``planfuse`` kernel launch (or per stage
-  through the ``wordops`` / ``slicefold`` / ``recompress`` kernels), many
-  queries per dispatch.  ``words_scanned`` is the total compressed leaf
-  words read.
+  padded to the power of two that holds a plan's longest one, decoded by
+  the ``ewah_decode`` kernel, and the whole plan runs in one ``planfuse``
+  kernel launch (or per stage through the ``wordops`` / ``slicefold`` /
+  ``recompress`` kernels), many queries per dispatch.  ``words_scanned``
+  is the total compressed leaf words read.
 
 Each backend exposes two result surfaces:
 
@@ -45,7 +45,6 @@ backends; tests assert it (tests/test_torch_query.py).
 from __future__ import annotations
 
 import hashlib
-import json
 import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -325,109 +324,6 @@ def lower_plan(root) -> tuple:
     return tuple(tape), max_depth
 
 
-class PlanStats:
-    """Observed plan-shape distribution -> autotuned device capacity buckets.
-
-    The planner feeds it: :func:`compile_plan` records every compiled
-    plan's max leaf stream length — the quantity the torch backend pads to
-    when batching.  Until :meth:`autotune` derives boundaries (or
-    :meth:`load` restores a previous run's), :meth:`capacity_for` falls
-    back to power-of-two buckets, so cold processes behave exactly as
-    before.  Boundaries are quantiles of the observed distribution
-    rounded up to a multiple of 8: buckets hug the live workload instead
-    of doubling (less padding per dispatch), while ``max_buckets`` caps
-    how many jit variants a shifting query mix can create.
-    :meth:`save`/:meth:`load` persist boundaries plus a sample tail, so a
-    restarted server warms up with last run's buckets and keeps refining
-    them (``serve --plan-stats``).
-
-    Thread-safe: serving records from worker threads while autotune runs
-    wherever the operator calls it.
-    """
-
-    MAX_SAMPLES = 8192
-
-    def __init__(self):
-        self._mutex = make_lock("plan_stats")
-        self._max_lens: list = []      # guarded-by: _mutex
-        self._boundaries: tuple = ()   # guarded-by: _mutex
-        self.recorded = 0              # guarded-by: _mutex
-
-    def record(self, plan) -> None:
-        if not plan.streams:
-            return
-        ml = max(len(s) for s in plan.streams)
-        with self._mutex:
-            self.recorded += 1
-            self._max_lens.append(int(ml))
-            if len(self._max_lens) > self.MAX_SAMPLES:
-                # keep the newest half: bounded memory, recency-weighted
-                self._max_lens = self._max_lens[self.MAX_SAMPLES // 2:]
-
-    def autotune(self, max_buckets: int = 8) -> tuple:
-        """Derive bucket boundaries (at most ``max_buckets``) from the
-        recorded distribution's quantiles; returns the new boundaries
-        (unchanged when nothing was recorded)."""
-        with self._mutex:
-            lens = sorted(self._max_lens)
-            if not lens:
-                return self._boundaries
-            qs = [lens[min(len(lens) - 1, (i * len(lens)) // max_buckets)]
-                  for i in range(1, max_buckets + 1)]
-            self._boundaries = tuple(sorted({-(-q // 8) * 8 for q in qs}))
-            return self._boundaries
-
-    @property
-    def boundaries(self) -> tuple:
-        with self._mutex:
-            return self._boundaries
-
-    def capacity_for(self, n: int) -> int:
-        """Smallest autotuned bucket holding ``n`` stream words; plans
-        past the largest boundary use the power-of-two fallback (they are
-        the tail the quantiles deliberately don't chase)."""
-        with self._mutex:
-            bounds = self._boundaries
-        for b in bounds:
-            if n <= b:
-                return b
-        return _capacity_bucket(n)
-
-    def stats(self) -> dict:
-        with self._mutex:
-            return {"recorded": self.recorded,
-                    "samples": len(self._max_lens),
-                    "boundaries": list(self._boundaries)}
-
-    def save(self, path) -> None:
-        with self._mutex:
-            payload = {"boundaries": list(self._boundaries),
-                       "recorded": self.recorded,
-                       "max_lens": self._max_lens[-1024:]}
-        with open(path, "w") as fh:
-            json.dump(payload, fh)
-
-    def load(self, path) -> bool:
-        """Restore persisted boundaries (+ sample tail); returns False
-        when the file is missing or unreadable — a cold start, not an
-        error."""
-        try:
-            with open(path) as fh:
-                payload = json.load(fh)
-        except (OSError, ValueError):
-            return False
-        with self._mutex:
-            self._boundaries = tuple(
-                int(b) for b in payload.get("boundaries", []))
-            self._max_lens = [int(x) for x in payload.get("max_lens", [])]
-        return True
-
-
-#: Process-wide recorder every ``compile_plan`` feeds and the torch
-#: backend's batch grouping reads.  serve --plan-stats persists it.
-PLAN_STATS = PlanStats()
-
-
 @lru_cache(maxsize=32)
 def _ones_stream(n_rows: int) -> np.ndarray:
     n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
@@ -557,7 +453,6 @@ def compile_plan(index, pred: Predicate, names=None) -> Plan:
                     containers=ctx.containers or None, workload=tuple(events))
         plan.root = _cost_order(plan.root, plan.streams, plan.n_words)
         _renumber_leaves(plan)
-        PLAN_STATS.record(plan)
         return plan
 
 
@@ -1145,8 +1040,8 @@ def _resolve_device(device):
 class TorchBackend:
     """Batched execution of many queries at once on a CUDA device.
 
-    Plans are grouped by (root op tree, leaf sharing, capacity bucket,
-    row count): compiled plans carry canonically numbered leaves, so
+    Plans are grouped by (root op tree, leaf sharing, capacity, row
+    count): compiled plans carry canonically numbered leaves, so
     structurally equal plans share one root tuple and hence one device
     program with a correct leaf mapping.  Leaves that reference one stream
     object (the bit-slices of a column, which an IN-list's equalities and a
@@ -1157,22 +1052,26 @@ class TorchBackend:
     With ``fuse=True`` (the default) the whole op tree then runs as one
     ``planfuse`` launch: the plan root lowers to a stack-machine tape
     (:func:`lower_plan`) that the kernel interprets, writing the root words
-    and their EWAH classes in one pass.  Plans the kernel cannot run (``kernels.planfuse.fits``: tape
-    too long or operand stack too deep) take the per-stage path instead:
-    ``wordops_fold`` per fan-in, ``slice_fold`` per comparison and the
-    ``recompress`` kernel at the root; a fan-in's children that are
-    fan-ins of leaves and complemented leaves alike in op and width (an
-    IN-list's equalities) gather their planes and fold together, a chunk
-    of them per ``wordops_fold``.  Compressed results encode on the
-    device with the ``ewah_encode`` kernel at any row length, the
-    canonical stream ``ewah.compress`` writes, and come back with their
-    lengths in one copy a group; nothing re-encodes on the host (the
-    reference does past ``MAX_DIRTY`` words).  Row-id answers
-    (:meth:`execute_many`) are cut from the answer words on the device by
-    the two ``rowids`` kernels and come back as ids, one copy a group;
-    the host unpacks no word.  Roaring
-    columns' ``("cfold", ...)`` nodes of all the call's plans fold first
-    (:func:`lower_containers_many`), every fold of the call in one
+    and their EWAH classes in one pass.  Plans the kernel cannot run
+    (``kernels.planfuse.fits``: tape too long or operand stack too deep)
+    take the per-stage path instead (:meth:`_stages`): ``wordops_fold``
+    per fan-in and ``slice_fold`` per comparison.  Both entries share this
+    group loop (:meth:`_groups`, :meth:`_evaluate`) and differ only in
+    their finisher on the group's answer words:
+
+    * :meth:`execute_compressed_many` encodes them on the device
+      (:meth:`_encode`: the ``ewah_encode`` kernel at any row length, fed
+      planfuse's word classes, or the ``recompress`` kernel's per stage),
+      the canonical stream ``ewah.compress`` writes, and brings the
+      streams and their lengths home in one copy a group; nothing
+      re-encodes on the host (the reference does past ``MAX_DIRTY``
+      words);
+    * :meth:`execute_many` cuts row ids from them on the device with the
+      two ``rowids`` kernels and brings the ids home in one copy a group;
+      the host unpacks no word.
+
+    Roaring columns' ``("cfold", ...)`` nodes of all the call's plans fold
+    first (:func:`lower_containers_many`), every fold of the call in one
     ``containerops`` launch (:meth:`_container_fold_many`).
 
     ``device=None`` is the CUDA device and raises where there is none;
@@ -1191,24 +1090,24 @@ class TorchBackend:
         return self.execute_many([plan])[0]
 
     def execute_many(self, plans):
-        """Batched execution with row-id answers: each group's device
-        program, then the ``rowids`` kernels turn its answer words into
-        row ids on the device, and the ids of the whole group come back
-        in one copy; answer b is a view of it.  Under tracing,
+        """Batched execution with row-id answers: each group's answer
+        words (:meth:`_groups`), then the ``rowids`` kernels turn them
+        into row ids on the device, and the ids of the whole group come
+        back in one copy; answer b is a view of it.  Under tracing,
         ``backend.rowid_answers`` counts the answers and
         ``backend.rowid_bytes`` the bytes of ids copied back."""
         from ..kernels import ops as kops
+
+        def count(words, kind, n_rows):
+            offsets, totals = kops.rowid_counts(words, n_rows)
+            return words, offsets, totals.cpu().numpy()
 
         with tracing.span("backend.call", device=True):
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
             out: list = [None] * len(plans)
-            for (root, share, cap, n_rows), idxs in self._group(plans).items():
-                batch, lengths = self._pad_group(plans, idxs, cap, share)
-                n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
-                dev_batch = self._to_device(batch, lengths)
-                words, offsets, totals = self._answer(
-                    root, share, dev_batch, n_words, n_rows=n_rows)
+            for idxs, n_rows, (words, offsets, totals) in self._groups(
+                    plans, None, count):
                 with tracing.span("backend.unpack", device=True):
                     ids = kops.rowid_write(words, n_rows, offsets,
                                            int(totals.sum()))
@@ -1227,12 +1126,20 @@ class TorchBackend:
 
     def execute_compressed_many(self, plans):
         """Batched compressed-in/compressed-out execution: uncached plans
-        group exactly like ``execute_many``, but the device program ends
-        with the ``ewah_encode`` kernel, so results come back as EWAH
-        streams and whole-plan results land in ``result_cache``.  Under
-        tracing, ``backend.encoded`` counts the answers the kernel wrote
-        and ``backend.encoded_overflow`` those among them whose stream
-        splits a run at ``MAX_CLEAN`` or ``MAX_DIRTY``."""
+        group exactly like ``execute_many``, but each group's answer words
+        encode on the device (:meth:`_encode`) and come back as EWAH
+        streams, with their lengths, in one copy; whole-plan results land
+        in ``result_cache``.  Under tracing, ``backend.encoded`` counts
+        the answers the encoder wrote and ``backend.encoded_overflow``
+        those among them whose stream splits a run at ``MAX_CLEAN`` or
+        ``MAX_DIRTY``."""
+        from ..kernels import ops as kops
+
+        def encode(words, kind, n_rows):
+            streams = self._encode(words, kind)[0]
+            flat = kops.encoded_flat(streams).cpu().numpy().view(np.uint32)
+            return kops.split_encoded(flat, *streams.shape)
+
         with tracing.span("backend.call", device=True):
             plans = lower_containers_many(plans, self._container_fold_many,
                                           self.result_cache)
@@ -1251,33 +1158,57 @@ class TorchBackend:
                                    "[cache]")
                     else:
                         todo.append(i)
-            groups = self._group(plans, todo)
-            for (root, share, cap, n_rows), idxs in groups.items():
-                batch, lengths = self._pad_group(plans, idxs, cap, share)
-                n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
-                dev_batch = self._to_device(batch, lengths)
-                streams, lens, over = self._answer(root, share, dev_batch,
-                                                   n_words)
+            for idxs, n_rows, (streams, lens, over) in self._groups(
+                    plans, todo, encode):
                 if tracing.enabled():
                     tracing.add("backend.encoded", len(idxs))
                     tracing.add("backend.encoded_overflow", int(over.sum()))
-                enc = [streams[b, : lens[b]] for b in range(len(idxs))]
                 for b, i in enumerate(idxs):
                     res = maybe_validate(
-                        EwahStream(enc[b], n_rows, plans[i].leaf_words()),
+                        EwahStream(streams[b, : lens[b]], n_rows,
+                                   plans[i].leaf_words()),
                         origin="TorchBackend.execute_compressed_many")
                     self.result_cache.put(keys[i], res, plans[i].scope)
                     out[i] = res
             return out
 
+    def _groups(self, plans, idxs, fetch):
+        """The group loop of both entries.  Each group of the plans
+        ``idxs`` (all where None) that shares one device program
+        (:meth:`_group`) is padded, copied and evaluated
+        (:meth:`_evaluate`), then ``fetch(words, kind, n_rows)``, the
+        entry's finisher, takes its answer words until what the host needs
+        of them is there.  Yields (the group's plan indices, n_rows, what
+        ``fetch`` returned).  The span ``backend.device`` runs from the
+        fused program's enqueue to ``fetch``'s return; on the per-stage
+        path the span ``backend.stages`` takes the decode and every stage,
+        and ``backend.device`` the finisher."""
+        for (root, share, cap, n_rows), group in self._group(
+                plans, idxs).items():
+            batch, lengths = self._to_device(
+                *self._pad_group(plans, group, cap, share))
+            n_words = (n_rows + ewah.WORD_BITS - 1) // ewah.WORD_BITS
+            prog = self._fused_program(root, share)
+            args = (prog, root, share, batch, lengths, n_words)
+            if prog is None:
+                with tracing.span("backend.stages", device=True):
+                    words, kind = self._evaluate(*args)
+                with tracing.span("backend.device", device=True):
+                    got = fetch(words, kind, n_rows)
+            else:
+                with tracing.span("backend.device", device=True):
+                    got = fetch(*self._evaluate(*args), n_rows)
+            yield group, n_rows, got
+
     def _group(self, plans, idxs=None) -> dict:
         """``{(root, share, cap, n_rows): plan indices}``: the plans that
-        share one device program."""
+        share one device program.  ``cap`` is the power of two (at least
+        8) that holds the plan's longest leaf stream."""
         with tracing.span("backend.pad"):
             groups: dict = {}
             for i in range(len(plans)) if idxs is None else idxs:
                 p = plans[i]
-                cap = PLAN_STATS.capacity_for(max(len(s) for s in p.streams))
+                cap = _capacity_bucket(max(len(s) for s in p.streams))
                 # key on the full root (leaf indices included), not
                 # signature(), and on the leaf sharing: only plans with an
                 # identical leaf-to-plane mapping may share a device program
@@ -1320,11 +1251,6 @@ class TorchBackend:
             tracing.add("backend.stream_bytes", 4 * int(lengths.sum()))
         with tracing.span("backend.h2d", device=True):
             return self._tensor(batch), self._tensor(lengths)
-
-    def _container_fold(self, csets, fops, n_rows):
-        """Device evaluation of one ``("cfold", ...)`` node (see
-        :meth:`_container_fold_many`)."""
-        return self._container_fold_many([(csets, fops, n_rows)])[0]
 
     def _container_fold_many(self, folds):
         """Device evaluation of ``("cfold", ...)`` nodes: ``[(csets, ops,
@@ -1431,103 +1357,55 @@ class TorchBackend:
         return planfuse.split(tuple((op, share[a] if op == TAPE_PUSH else a)
                                     for op, a in tape))
 
-    def _fused_tape(self, root, share):
-        """The lowered instruction tape for ``root`` when the planfuse
-        kernel can run it, else None."""
-        prog = self._fused_program(root, share)
-        return None if prog is None else prog.tape
-
-    def _answer(self, root, share, dev_batch, n_words: int, n_rows=None):
-        """One group's device program (:meth:`_run`) and what the host
-        needs of it: for the row-id entry (``n_rows`` given) the (B, W)
-        answer words, left on the device, the ``rowids`` count kernel's
-        tile offsets beside them and each answer's id count, (B,) int64 on
-        the host; else the encoder's (streams, lengths, overflow) arrays
-        on the host.  The span ``backend.device`` runs from the fused
-        program's enqueue to those arrays on the host; on the per-stage
-        path the span ``backend.stages`` takes the enqueue (decode, every
-        stage, the root encode) and ``backend.device`` the rest."""
-        from ..kernels import ops as kops
-
-        compressed = n_rows is None
-
-        def fetch(dev):
-            if not compressed:
-                offsets, totals = kops.rowid_counts(dev, n_rows)
-                return dev, offsets, totals.cpu().numpy()
-            flat = kops.encoded_flat(dev[0]).cpu().numpy().view(np.uint32)
-            return kops.split_encoded(flat, *dev[0].shape)
-
-        prog = self._fused_program(root, share)
-        args = (prog, root, share, *dev_batch, n_words, compressed)
-        if prog is None:
-            with tracing.span("backend.stages", device=True):
-                dev = self._run(*args)
-            with tracing.span("backend.device", device=True):
-                return fetch(dev)
-        with tracing.span("backend.device", device=True):
-            return fetch(self._run(*args))
-
-    def _run(self, prog, root, share, batch, lengths, n_words: int,
-             compressed: bool = False):
-        """The device program of one group: decode, evaluate, and (when
-        ``compressed``) encode.  ``batch`` (B, m, C) and ``lengths``
-        (B, m) lie on the device, leaf i of ``root`` reading plane
-        ``share[i]``; ``prog`` is :meth:`_fused_program`'s answer for
-        them, the per-stage path where None.  Returns (B, W) words, or,
-        when compressed, ``ops.ewah_encode``'s (streams (B,
-        ``ewah_torch.stream_capacity(W)``), lengths (B,), overflow (B,)),
-        views of one buffer."""
-        import torch
-
-        from . import ewah_torch
+    def _evaluate(self, prog, root, share, batch, lengths, n_words: int):
+        """One group's answer words on the device: the planes decoded from
+        ``batch`` (B, m, C) and ``lengths`` (B, m), leaf i of ``root``
+        reading plane ``share[i]``, then the fused program ``prog``
+        (:meth:`_fused_program`) or, where it is None, the per-stage
+        evaluator (:meth:`_stages`).  Returns (words (B, W), kind): kind is
+        planfuse's EWAH class of each word on the fused path, None per
+        stage."""
         from ..kernels import ops as kops
 
         planes = kops.ewah_decode(batch, lengths, n_words)  # (m, B, W)
+        if prog is None:
+            return self._stages(root, share, planes), None
         m, B = planes.shape[0], planes.shape[1]
+        # the whole op tree + the classification in ONE launch
+        flat, kind = kops.plan_fuse(planes.reshape(m, -1), prog)
+        return flat.reshape(B, n_words), kind.reshape(B, n_words)
 
-        if prog is not None:
-            # fused: the whole op tree + the classification in ONE launch
-            flat, kflat = kops.plan_fuse(planes.reshape(m, -1), prog)
-            words = flat.reshape(B, n_words)
-            if not compressed:
-                return words
-            return kops.ewah_encode(words, kflat.reshape(B, n_words),
-                                    ewah_torch.stream_capacity(n_words))
+    @staticmethod
+    def _encode(words, kind):
+        """The compressed entry's finisher on the device: (B, W) answer
+        words -> ``ops.ewah_encode``'s (streams (B,
+        ``ewah_torch.stream_capacity(W)``), lengths (B,), overflow (B,)),
+        views of one buffer.  The fused program's word classes ``kind``
+        feed the encoder; where there are none (per stage) the
+        ``recompress`` kernel classifies the words first."""
+        from . import ewah_torch
+        from ..kernels import ops as kops
+
+        cap = ewah_torch.stream_capacity(words.shape[1])
+        if kind is None:
+            return kops.recompress_batch(words, cap)
+        return kops.ewah_encode(words, kind, cap)
+
+    def _stages(self, root, share, planes):
+        """The per-stage evaluator: ``root`` over the decoded (m, B, W)
+        ``planes``, leaf i reading plane ``share[i]`` -> (B, W) words.
+        ``slice_fold`` per comparison and ``wordops_fold`` per fan-in; a
+        fan-in's children that are fan-ins of leaves and complemented
+        leaves alike in op and width (an IN-list's equalities) gather
+        their planes and fold together (:func:`_clauses`)."""
+        import torch
+
+        from ..kernels import ops as kops
 
         if planes.is_cuda:
             kops.build_per_stage()
-        lits = None   # once made: the planes, then their complements
-
-        def literal(node):
-            """The row of ``lits`` a leaf or a complemented leaf reads,
-            else None."""
-            neg = node[0] == "not"
-            leaf = node[1] if neg else node
-            if leaf[0] != "leaf":
-                return None
-            k = share[leaf[1]]
-            return k + m if neg else k
-
-        def clauses(op, rows):
-            """Fan-ins of ``op`` over literals, ``rows[j]`` the literals of
-            the j-th, all of one width w: one gather and one wordops_fold
-            per chunk of them -> [(k, B, W), ...] in ``rows`` order."""
-            nonlocal lits
-            if lits is None:
-                lits = torch.cat([planes, torch.bitwise_not(planes)])
-            # (w, clauses) in row-major order: the gather's result takes
-            # the index's layout, and wordops_fold wants it contiguous
-            idx = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(rows, dtype=np.int64).T)).to(planes.device)
-            w = idx.shape[0]
-            step = max(1, CLAUSE_CHUNK_BYTES // max(1, w * B * n_words * 4))
-            out = []
-            for c in range(0, idx.shape[1], step):
-                part = lits[idx[:, c: c + step]]          # (w, k, B, W)
-                folded = kops.wordops_fold(part.view(w, -1), op)
-                out.append(folded.reshape(part.shape[1:]))
-            return out
+        m = planes.shape[0]
+        lits: list = []   # filled by the first _clauses call
 
         def ev(node):
             if node[0] == "leaf":
@@ -1548,30 +1426,63 @@ class TorchBackend:
             op, children = node
             if op not in ("and", "or"):
                 raise ValueError(f"unknown plan-node kind {op!r}")
-            rows = [literal(c) for c in children]
+            rows = [_literal(c, share, m) for c in children]
             if None not in rows:          # a clause: an equality's slices
-                return clauses(op, [rows])[0][0]
+                return _clauses(op, [rows], planes, lits)[0][0]
             # children that are clauses alike (an IN-list's equalities) go
             # together, the rest one by one; and/or take them in any order
             parts, alike = [], {}
             for c in children:
-                r = [literal(g) for g in c[1]] if c[0] in ("and", "or") \
-                    else [None]
+                r = [_literal(g, share, m) for g in c[1]] \
+                    if c[0] in ("and", "or") else [None]
                 if None in r:
                     parts.append(ev(c)[None])
                 else:
                     alike.setdefault((c[0], len(r)), []).append(r)
             for (cop, _), group in alike.items():
-                parts += clauses(cop, group)
+                parts += _clauses(cop, group, planes, lits)
             stacked = torch.cat(parts)                    # (p, B, W)
             folded = kops.wordops_fold(stacked.reshape(len(stacked), -1), op)
             return folded.reshape(stacked.shape[1:])
 
-        words = ev(root)
-        if not compressed:
-            return words
-        return kops.recompress_batch(words,
-                                     ewah_torch.stream_capacity(n_words))
+        return ev(root)
+
+
+def _literal(node, share, m: int):
+    """The row of the per-stage literals (the m planes, then their
+    complements) that a leaf or a complemented leaf reads, else None."""
+    neg = node[0] == "not"
+    leaf = node[1] if neg else node
+    if leaf[0] != "leaf":
+        return None
+    k = share[leaf[1]]
+    return k + m if neg else k
+
+
+def _clauses(op, rows, planes, lits: list):
+    """Fan-ins of ``op`` over the per-stage literals, ``rows[j]`` the
+    literal rows (:func:`_literal`) of the j-th, all of one width w: one
+    gather and one ``wordops_fold`` per chunk of them -> [(k, B, W), ...]
+    in ``rows`` order.  ``lits`` holds the literals, the (m, B, W)
+    ``planes`` then their complements, once the first call made them."""
+    import torch
+
+    from ..kernels import ops as kops
+
+    if not lits:
+        lits.append(torch.cat([planes, torch.bitwise_not(planes)]))
+    # (w, clauses) in row-major order: the gather's result takes the
+    # index's layout, and wordops_fold wants it contiguous
+    idx = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(rows, dtype=np.int64).T)).to(planes.device)
+    w = idx.shape[0]
+    step = max(1, CLAUSE_CHUNK_BYTES // max(1, w * planes[0].numel() * 4))
+    out = []
+    for c in range(0, idx.shape[1], step):
+        part = lits[0][idx[:, c: c + step]]           # (w, k, B, W)
+        folded = kops.wordops_fold(part.view(w, -1), op)
+        out.append(folded.reshape(part.shape[1:]))
+    return out
 
 
 def _sharing(plan) -> tuple:

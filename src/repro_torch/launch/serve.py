@@ -45,7 +45,6 @@ from ..analysis.runtime import make_lock
 from ..configs import get_config
 from ..core import BitmapIndex, Eq, IndexSpec, IndexWriter
 from ..core.lifecycle import BackgroundCompactor
-from ..core.query import PLAN_STATS
 from ..dist import sharding
 from ..models import transformer
 from ..models.common import ShardingCtx, mesh_axes, resolve_device
@@ -354,10 +353,6 @@ def main(argv=None):
                     help="write a torch.profiler trace of the serving loop "
                          "to DIR/serve_trace.json plus a wall-clock "
                          "top-phase summary on stdout")
-    ap.add_argument("--plan-stats", default=None, metavar="PATH",
-                    help="persist the query plan-shape recorder "
-                         "(core.query.PLAN_STATS): load at startup, "
-                         "autotune + save at exit")
     ap.add_argument("--workload-stats", default=None, metavar="PATH",
                     help="persist the workload telemetry recorder "
                          "(workload.WORKLOAD_STATS): load at startup so "
@@ -368,11 +363,6 @@ def main(argv=None):
     if args.smoke:
         cfg = cfg.smoke()
     rng = np.random.default_rng(0)
-
-    if args.plan_stats:
-        warm = PLAN_STATS.load(args.plan_stats)
-        print(f"plan-stats {'loaded from' if warm else 'cold start at'} "
-              f"{args.plan_stats}: buckets {list(PLAN_STATS.boundaries)}")
 
     if args.workload_stats:
         warm = WORKLOAD_STATS.load(args.workload_stats)
@@ -507,10 +497,6 @@ def _serve(args, cfg, rng, device, mesh, rank, rules):
         trace.export_chrome_trace(path)
         say(f"profiler trace written to {path}")
         _report(phases)
-    if args.plan_stats and rank == 0:
-        PLAN_STATS.autotune()
-        PLAN_STATS.save(args.plan_stats)
-        say(f"plan-stats saved to {args.plan_stats}: {PLAN_STATS.stats()}")
     if args.workload_stats and rank == 0:
         WORKLOAD_STATS.save(args.workload_stats)
         say(f"workload-stats saved to {args.workload_stats}: "

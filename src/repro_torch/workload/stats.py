@@ -10,9 +10,10 @@ recency-weighted tail of these — the training set for
 per column so compaction can re-encode toward the live query mix
 (docs/containers.md, "Workload-driven re-encoding").
 
-Mirrors ``query.PlanStats``: same bounding policy (keep the newest half
-past ``MAX_SAMPLES``), same save/load persistence contract
-(``serve --workload-stats``), same locking discipline.
+The buffer is bounded: past ``MAX_SAMPLES`` it keeps the newest half, so
+memory stays fixed and the samples follow the live mix.  :meth:`save` writes
+its newest 2,048 samples and :meth:`load` restores them
+(``serve --workload-stats``); one lock guards every read and write.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ lowering against the reference.
   ``container_gallop`` with the Pallas kernels in interpret mode and
   their jnp paths, on the inputs of tests/test_containers.py, padding
   lanes included;
-* ``TorchBackend(device="cpu")._container_fold`` against
+* ``TorchBackend(device="cpu")._container_fold_many`` against
   ``get_backend("jax", interpret=True)._container_fold`` and the numpy
   streaming fold ``containers.fold`` on the four seeded trials of
   tests/test_containers.py, plus "and" folds of array containers with
@@ -169,7 +169,8 @@ def test_container_fold_matches_jax_and_numpy(trial):
     n, pos, fops = fold_trials()[trial]
     t_sets = [C.from_positions(p, n) for p in pos]
     r_sets = [RC.from_positions(p, n) for p in pos]
-    got = TorchBackend(device="cpu")._container_fold(t_sets, fops, n)
+    got = TorchBackend(device="cpu")._container_fold_many(
+        [(t_sets, fops, n)])[0]
     want_jax = get_backend("jax", interpret=True)._container_fold(
         r_sets, fops, n)
     np.testing.assert_array_equal(got, want_jax)
@@ -203,7 +204,8 @@ def test_and_fold_takes_gallop_path(dens, monkeypatch):
     assert classes == {C.ARRAY, C.BITMAP}
     gallops = count_calls(monkeypatch, "container_gallop")
     folds = count_calls(monkeypatch, "container_fold")
-    got = TorchBackend(device="cpu")._container_fold(t_sets, fops, n)
+    got = TorchBackend(device="cpu")._container_fold_many(
+        [(t_sets, fops, n)])[0]
     assert len(folds) == 1 and not gallops
     np.testing.assert_array_equal(got, RC.fold(r_sets, fops, n))
     np.testing.assert_array_equal(
@@ -228,7 +230,8 @@ def test_unknown_op_raises_in_both():
     t_sets = [C.from_positions(x, n) for x in p]
     r_sets = [RC.from_positions(x, n) for x in p]
     with pytest.raises(ValueError, match="unknown container merge op"):
-        TorchBackend(device="cpu")._container_fold(t_sets, ("xor",), n)
+        TorchBackend(device="cpu")._container_fold_many(
+            [(t_sets, ("xor",), n)])
     with pytest.raises(ValueError, match="unknown container merge op"):
         get_backend("jax", interpret=True)._container_fold(r_sets, ("xor",), n)
     a = torch.zeros(2, C.CHUNK_WORDS, dtype=torch.int32)

@@ -504,8 +504,9 @@ def test_container_fold_on_card_matches_numpy(dev):
     for fops in (("and", "or", "andnot"), ("and", "and", "and"),
                  ("or", "andnot", "and")):
         ops.reset_launches()
-        np.testing.assert_array_equal(be._container_fold(sets, fops, n),
-                                      C.fold(sets, fops, n))
+        np.testing.assert_array_equal(
+            be._container_fold_many([(sets, fops, n)])[0],
+            C.fold(sets, fops, n))
         # "and" intersects inside the one fold launch: member never runs
         assert ops.LAUNCHES["member"] == 0
         assert ops.LAUNCHES["containerops"] == 1

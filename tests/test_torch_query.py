@@ -158,9 +158,9 @@ def test_fused_tape_used_and_per_stage_when_not_fused():
     fused = TorchBackend(device="cpu")
     per_stage = TorchBackend(device="cpu", fuse=False)
     share = TQ._sharing(plans[-1])
-    tape = fused._fused_tape(root, share)
+    tape = fused._fused_program(root, share).tape
     assert tape is not None and tape == TQ.lower_plan(root)[0]
-    assert per_stage._fused_tape(root, share) is None
+    assert per_stage._fused_program(root, share) is None
     want = NumpyBackend().execute_compressed_many(plans)
     got_f = fused.execute_compressed_many(plans)
     got_p = per_stage.execute_compressed_many(plans)
@@ -207,11 +207,11 @@ def test_hopper_gate_sends_deep_plans_per_stage():
     ok = _deep_root(planfuse.MAX_STACK_DEPTH)
     deep = _deep_root(planfuse.MAX_STACK_DEPTH + 1)
     assert TQ.lower_plan(deep)[1] == planfuse.MAX_STACK_DEPTH + 1
-    assert be._fused_tape(ok, _identity(ok)) is not None
-    assert be._fused_tape(deep, _identity(deep)) is None
+    assert be._fused_program(ok, _identity(ok)) is not None
+    assert be._fused_program(deep, _identity(deep)) is None
     long_tape = ("or", tuple(("leaf", i)
                              for i in range(planfuse.MAX_TAPE_LEN // 2 + 1)))
-    assert be._fused_tape(long_tape, _identity(long_tape)) is None
+    assert be._fused_program(long_tape, _identity(long_tape)) is None
 
 
 def test_gated_plans_run_per_stage_and_agree(monkeypatch):
@@ -221,11 +221,36 @@ def test_gated_plans_run_per_stage_and_agree(monkeypatch):
     monkeypatch.setattr(planfuse, "MAX_STACK_DEPTH", 1)
     be = TorchBackend(device="cpu")
     got = be.execute_compressed_many(plans)
-    assert be._fused_tape(plans[4].root,
-                          TQ._sharing(plans[4])) is None   # depth 2: per stage
-    assert be._fused_tape(plans[0].root, TQ._sharing(plans[0])) is not None
+    assert be._fused_program(plans[4].root,
+                             TQ._sharing(plans[4])) is None   # depth 2: per stage
+    assert be._fused_program(plans[0].root,
+                             TQ._sharing(plans[0])) is not None
     for s, w in zip(got, want):
         np.testing.assert_array_equal(s.data, w.data)
+
+
+def test_group_capacity_is_the_bucket_of_its_longest_stream():
+    """A group pads to the power of two (at least 8) that holds its
+    longest leaf stream, whatever the process compiled before: compiling
+    plans leaves no process-wide state that grouping reads."""
+    assert [TQ._capacity_bucket(n) for n in (1, 8, 9, 16, 17, 1000)] == \
+        [8, 8, 16, 16, 32, 1024]
+    idx = index_from_reference(ref_index("equality"))
+    be = TorchBackend(device="cpu")
+    plans = [compile_plan(idx, p) for p in predicates(T)]
+    first = be._group(plans)
+    wide = T.BitmapIndex.build(table(n=20000, seed=9),
+                               T.IndexSpec(k=1, row_order="lex"))
+    for _ in range(40):
+        for p in predicates(T):
+            compile_plan(wide, p)
+    plans = [compile_plan(idx, p) for p in predicates(T)]
+    groups = be._group(plans)
+    assert list(groups) == list(first)
+    for (_, _, cap, _), idxs in groups.items():
+        longest = max(len(s) for i in idxs for s in plans[i].streams)
+        assert cap == max(8, 1 << (longest - 1).bit_length())
+        assert cap == TQ._capacity_bucket(longest)
 
 
 def test_entry_points_answer_like_evaluate_mask():

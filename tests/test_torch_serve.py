@@ -215,11 +215,9 @@ def test_main_profile_writes_a_trace(tmp_path):
     out, got = run_main(serve.main, [
         "--device", "cpu", "--requests", "8", "--batch", "4",
         "--gen-tokens", "2", "--admission", "segmented", "--profile",
-        str(tmp_path), "--plan-stats", str(tmp_path / "plan.json"),
-        "--workload-stats", str(tmp_path / "workload.json")])
+        str(tmp_path), "--workload-stats", str(tmp_path / "workload.json")])
     assert (tmp_path / "serve_trace.json").stat().st_size > 0
     assert "# top serving phases (wall-clock)" in out
-    assert (tmp_path / "plan.json").exists()
     assert (tmp_path / "workload.json").exists()
     assert got["tokens"] == 16
 

@@ -103,7 +103,7 @@ def test_fused_tape_pushes_the_shared_planes(keyed):
     _, idx = keyed
     plan = compile_plan(idx, T.In(0, q17_keys(30, 5)))
     share = TQ._sharing(plan)
-    tape = TorchBackend(device="cpu")._fused_tape(plan.root, share)
+    tape = TorchBackend(device="cpu")._fused_program(plan.root, share).tape
     own, _ = TQ.lower_plan(plan.root)
     assert tape == tuple((op, share[a] if op == TQ.TAPE_PUSH else a)
                          for op, a in own)
